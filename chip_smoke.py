@@ -1,0 +1,320 @@
+#!/usr/bin/env python3
+"""On-card smoke run of the PyTorch port (``src/repro_torch``).
+
+Drives the port's columnar query path on one CUDA device and checks it:
+
+  1. device   the card's name and power limit (nvidia-smi)
+  2. build    the four CUDA kernels from src/repro_torch/kernels/csrc
+  3. kernels  K1-K4 against their plain PyTorch versions at main-path
+              shapes, timed with CUDA events beside their bound and, where
+              one PyTorch call computes the same function, that call
+  4. main     TinySocial ingested through ``insert_batch`` (tiered merges
+              run K3), then the table-3 query classes through
+              ``run_query(..., vectorize=True)``, cold and warm, checked
+              against the row engine and numpy over the generated records
+  5. a ``kernels`` JSON line, the card line, and the ``ok`` JSON line last
+
+Usage:  python3 chip_smoke.py [--messages 2000000] [--users 200000]
+                              [--partitions 4] [--flush-threshold 65536]
+Any failed check raises and the script exits non-zero without the ``ok``
+line; with no CUDA device it exits 2.
+"""
+
+from __future__ import annotations
+
+import argparse
+import datetime as dt
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError("check failed: " + msg)
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# the table-3 query classes (benchmarks/table3_queries.py)
+# ---------------------------------------------------------------------------
+
+LO, HI = dt.datetime(2010, 1, 1), dt.datetime(2010, 2, 1)
+MLO, MHI = dt.datetime(2014, 2, 1), dt.datetime(2015, 1, 1)
+SKIP_HI = dt.datetime(2014, 2, 20)
+JLO, JHI = dt.datetime(2014, 1, 1), dt.datetime(2014, 1, 4)
+
+
+def plans(A):
+    sel_j = A.select(A.scan("MugshotMessages"),
+                     pred=lambda r: r["timestamp"] <= JHI,
+                     fields=["timestamp"], ranges={"timestamp": (JLO, JHI)})
+    return {
+        "index_range_scan": A.select(
+            A.scan("MugshotUsers"),
+            pred=lambda r: LO <= r["user-since"] <= HI,
+            fields=["user-since"], ranges={"user-since": (LO, HI)}),
+        "exact_range_aggregate": A.aggregate(
+            A.select(A.scan("MugshotMessages"),
+                     pred=lambda r: r["timestamp"] >= MLO,
+                     fields=["timestamp"], ranges={"timestamp": (MLO, MHI)},
+                     ranges_exact=True, hints=["skip-index"]),
+            {"cnt": ("count", "*"), "avg_author": ("avg", "author-id")}),
+        "skip_index_select": A.select(
+            A.scan("MugshotMessages"),
+            pred=lambda r: MLO <= r["timestamp"] <= SKIP_HI,
+            fields=["timestamp"], ranges={"timestamp": (MLO, SKIP_HI)},
+            hints=["skip-index"]),
+        "index_chain_aggregate": A.aggregate(
+            A.select(A.scan("MugshotMessages"),
+                     pred=lambda r: r["timestamp"] >= MLO,
+                     fields=["timestamp"], ranges={"timestamp": (MLO, MHI)}),
+            {"cnt": ("count", "*"), "avg_author": ("avg", "author-id")}),
+        "grouped_topk": A.limit(A.order_by(
+            A.group_by(A.scan("MugshotMessages"), ["author-id"],
+                       {"cnt": ("count", "*")}), ["cnt"], desc=True), 10),
+        "select_join": A.project(
+            A.join(sel_j, A.scan("MugshotUsers"), ["author-id"], ["id"]),
+            ["message-id", "author-id", "name"]),
+    }
+
+
+# a plan whose select is not ranges_exact re-checks its index survivors
+# row by row and aggregates the gathered batch: those columns are new
+# per query and ship (as in the reference, whose fused chain declines it)
+GATHERED = {"index_chain_aggregate"}
+WARM_REPEATS = 3
+K2_H2D = "kernel.fused_filter_aggregate.h2d_bytes"
+
+
+def canon(rows):
+    return sorted(repr(sorted(r.items())) for r in rows)
+
+
+def numpy_oracle(name, rows, rec):
+    """Check one query's rows against numpy over the generated records."""
+    import numpy as np
+    ts, author, mid = rec["ts"], rec["author"], rec["mid"]
+    if name == "index_range_scan":
+        want = rec["uid"][(rec["since"] >= np.datetime64(LO))
+                          & (rec["since"] <= np.datetime64(HI))]
+        check(sorted(r["id"] for r in rows) == sorted(want.tolist()), name)
+    elif name in ("exact_range_aggregate", "index_chain_aggregate"):
+        sel = (ts >= np.datetime64(MLO)) & (ts <= np.datetime64(MHI))
+        check(len(rows) == 1 and rows[0]["cnt"] == int(sel.sum()), name)
+        want = float(author[sel].sum()) / int(sel.sum())
+        got = rows[0]["avg_author"]
+        check(abs(got - want) <= 1e-12 * abs(want), f"{name}: {got} {want}")
+    elif name == "skip_index_select":
+        sel = (ts >= np.datetime64(MLO)) & (ts <= np.datetime64(SKIP_HI))
+        check(sorted(r["message-id"] for r in rows)
+              == sorted(mid[sel].tolist()), name)
+    elif name == "grouped_topk":
+        counts = np.bincount(author)
+        top = sorted(counts.tolist(), reverse=True)[:10]
+        check([r["cnt"] for r in rows] == top, name)
+        check(all(counts[r["author-id"]] == r["cnt"] for r in rows), name)
+    elif name == "select_join":
+        sel = (ts >= np.datetime64(JLO)) & (ts <= np.datetime64(JHI))
+        check(sorted(r["message-id"] for r in rows)
+              == sorted(mid[sel].tolist()), name)
+
+
+def build_tinysocial(args, port):
+    """TinySocial through ``insert_batch`` (the feed path): flushes at the
+    threshold and tiered merges (K3) run during ingest."""
+    import numpy as np
+    adm, ts, dsm = port["adm"], port["ts"], port["dsm"]
+    t0 = time.perf_counter()
+    users = ts.gen_users(args.users, args.seed)
+    msgs = ts.gen_messages(args.messages, args.users, args.seed + 1)
+    t_gen = time.perf_counter() - t0
+    rec = {"uid": np.array([u["id"] for u in users], np.int64),
+           "since": np.array([u["user-since"] for u in users],
+                             "datetime64[us]"),
+           "mid": np.array([m["message-id"] for m in msgs], np.int64),
+           "author": np.array([m["author-id"] for m in msgs], np.int64),
+           "ts": np.array([m["timestamp"] for m in msgs], "datetime64[us]")}
+    dv = adm.Dataverse("TinySocial")
+    ut = dv.create_type(ts.user_type())
+    mt = dv.create_type(ts.message_type())
+    ds = {"MugshotUsers": dsm.PartitionedDataset(
+              "MugshotUsers", ut, "id", args.partitions,
+              args.flush_threshold),
+          "MugshotMessages": dsm.PartitionedDataset(
+              "MugshotMessages", mt, "message-id", args.partitions,
+              args.flush_threshold)}
+    ds["MugshotUsers"].create_index("user-since")
+    ds["MugshotMessages"].create_index("timestamp")
+    ds["MugshotMessages"].create_index("author-id")
+    t1 = time.perf_counter()
+    chunk = 100_000
+    for name, records in (("MugshotUsers", users),
+                          ("MugshotMessages", msgs)):
+        for i in range(0, len(records), chunk):
+            ds[name].insert_batch(records[i:i + chunk])
+    import torch
+    torch.cuda.synchronize()
+    t_ingest = time.perf_counter() - t1
+    n_rec = len(users) + len(msgs)
+    print(f"main: generated {len(users)} users + {len(msgs)} messages in "
+          f"{t_gen:.3f} s; ingested in {t_ingest:.3f} s "
+          f"({n_rec / t_ingest:.0f} records/s, host clock)")
+    return ds, rec
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--messages", type=int, default=2_000_000)
+    ap.add_argument("--users", type=int, default=200_000)
+    ap.add_argument("--partitions", type=int, default=4)
+    ap.add_argument("--flush-threshold", type=int, default=65536)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+
+    # -- 1. device ---------------------------------------------------------
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print("chip_smoke: src/repro_torch not found beside this script",
+              file=sys.stderr)
+        return 2
+    import repro_torch
+    from repro_torch import obs
+    from repro_torch.configs import tinysocial
+    from repro_torch.core import adm, algebra
+    from repro_torch.kernels import device_pool, ops, selfcheck
+    from repro_torch.storage import dataset, query
+    repro_torch.set_device("cuda")
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    print(f"device: {kind} | nvidia-smi: {card} | torch {torch.__version__}"
+          f" cuda {torch.version.cuda}")
+
+    # -- 2. build ----------------------------------------------------------
+    t0 = time.perf_counter()
+    ops.lib()
+    built = (f"{ops.BUILD_SECONDS[0]} s nvcc (sm_90a, one process per "
+             f"source)" if ops.BUILD_LOG else
+             "reused the library an earlier process built from these "
+             "sources")
+    print(f"build: {built}; {time.perf_counter() - t0} s to a loaded "
+          f"library")
+    for log in ops.BUILD_LOG:
+        for line in log.splitlines():
+            if "entry function" in line or "registers" in line \
+                    or "spill" in line:
+                print("  ptxas", line.strip())
+
+    # -- 3. kernels against their plain versions ---------------------------
+    dev = torch.device("cuda", 0)
+    results = {}
+    for case in selfcheck.main_path_cases(dev, seed=args.seed):
+        r = selfcheck.run_case(case)
+        print(f"kernel {r['kernel']} [{r['label']}]: max_abs_err "
+              f"{r['max_abs_err']} ms {r['ms']} (call {r['call_ms']}) "
+              f"plain_ms {r['plain_ms']} (call {r['plain_call_ms']}) "
+              f"library_ms {r['library_ms']} (call {r['library_call_ms']})"
+              f" bound_ms {r['bound_ms']} ({r['bound_by']})")
+        check(r["ok"], f"{r['kernel']} [{r['label']}] disagrees with its "
+                       f"plain version (max_abs_err {r['max_abs_err']})")
+        results.setdefault(r["kernel"], []).append(r)
+
+    # -- 4. main path ------------------------------------------------------
+    port = {"adm": adm, "ts": tinysocial, "dsm": dataset}
+    selfcheck.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    ds, rec = build_tinysocial(args, port)
+    qs = plans(algebra)
+    for name, plan in qs.items():
+        times = []
+        for rep in range(1 + WARM_REPEATS):
+            k2_h2d = obs.snapshot().get(K2_H2D, 0)
+            t = time.perf_counter()
+            rows, ex = query.run_query(plan, ds, vectorize=True)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            st = ex.stats
+            if rep == 0:
+                cold = st
+                continue
+            check(st.kernel_retraces == 0, f"{name}: warm retraces")
+            check(st.rows_fallback == 0, f"{name}: warm row fallback "
+                                         f"{st.fallback_reasons}")
+            # resident operands never re-ship; the gathered survivors of
+            # a residual-checked aggregate are K2's only uploads
+            shipped = st.h2d_bytes - (obs.snapshot().get(K2_H2D, 0) - k2_h2d
+                                      if name in GATHERED else 0)
+            check(shipped == 0, f"{name}: warm h2d {st.h2d_bytes}")
+        check(cold.rows_fallback == 0, f"{name}: cold row fallback")
+        numpy_oracle(name, rows, rec)
+        t = time.perf_counter()
+        rrows, _ = query.run_query(plan, ds, vectorize=False)
+        t_row = time.perf_counter() - t
+        check(canon(rrows) == canon(rows), f"{name}: row engine")
+        warm = sorted(times[1:])
+        busy = selfcheck.device_ms(
+            lambda: query.run_query(plan, ds, vectorize=True)) / 1e3
+        med = warm[len(warm) // 2]
+        if busy == 0 and st.kernel_dispatches:
+            idle = "busy not measured: the profiler recorded no kernel"
+        else:
+            idle = f"busy_s {busy}, idle share {1 - busy / med}"
+        print(f"query {name}: rows {len(rows)} cold_s {times[0]} "
+              f"warm_s_median {med} (host clock to synchronize; "
+              f"{WARM_REPEATS} warm runs) warm device {idle} "
+              f"(profiler) cold_h2d {cold.h2d_bytes} warm_h2d "
+              f"{st.h2d_bytes} warm_d2h {st.d2h_bytes} warm_dispatches "
+              f"{st.kernel_dispatches} rows_vectorized {st.rows_vectorized}"
+              f" checked against the row engine ({t_row} s) and numpy")
+    counts = selfcheck.launch_counts()
+    print(f"main: launches {json.dumps(counts)}")
+    for k, v in counts.items():
+        check(v > 0, f"kernel {k} never launched on the main path")
+    snap = obs.snapshot()
+    print(f"main: buffer_pool.resident_bytes "
+          f"{snap.get('buffer_pool.resident_bytes')} entries "
+          f"{device_pool.pool.entry_count()} "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated()}")
+
+    # -- 5. kernels line, card line, ok line -------------------------------
+    line = []
+    for name, meta in selfcheck.KERNELS.items():
+        r = results[name][0]
+        entry = {"name": name, "route": "cuda", "source": meta["source"],
+                 "replaces": meta["replaces"], "launches": counts[name],
+                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                 "call_ms": r["call_ms"], "plain_call_ms": r["plain_call_ms"],
+                 "library_call_ms": r["library_call_ms"],
+                 "shape": r["label"]}
+        if len(results[name]) > 1:
+            entry["other_shapes"] = [
+                {k: o[k] for k in ("label", "max_abs_err", "ms", "call_ms",
+                                   "plain_ms", "library_ms", "bound_ms")}
+                for o in results[name][1:]]
+        line.append(entry)
+    print(json.dumps({"kernels": line}))
+    print(f"card: {card}")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

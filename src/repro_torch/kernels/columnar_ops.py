@@ -1,0 +1,541 @@
+"""Fused columnar predicate + reduction kernels (the columnar engine's
+hot path), on PyTorch with hand-written CUDA kernels.
+
+Four entry points, numpy in / python out, with the reference's
+signatures (``repro/kernels/columnar_ops.py``):
+
+  range_mask(preds, n)           K1: conjunctive [lo, hi] range predicate
+                                 over K columns -> bool mask
+  fused_filter_aggregate(...)    K2: the same mask fused with count / sum /
+                                 min / max over M aggregate columns in one
+                                 pass (no materialized mask, no gather)
+  sorted_intersect_mask(...)     K3: sorted candidate keys vs a partition's
+                                 sorted live keys -> position bitmap
+  sorted_merge_take(...)         k-way sorted-PK merge/dedup/tombstone-drop
+                                 -> take indices (K3 per component plus an
+                                 exclusive cumsum: the LSM merge path)
+
+Operands go through the device pool (``kernels/device_pool``) onto the
+selected device (``kernels/ops.target``).  A CUDA operand launches the
+kernel from ``csrc/`` (or raises); a CPU operand runs the kernel's plain
+PyTorch version beside it.  The kernels compute in the column's own dtype
+(int64, float64, int32 dictionary codes), so results equal the
+reference's exact x64 path; the reference's f32 TPU operand stacking is
+not carried over.  Operands keep the reference's pow2 padding, and
+``trace_count()`` counts the first sighting of each (kernel, pow2 shape,
+dtypes) triple — the port's stand-in for the reference's jit traces, so
+repeated queries over pooled operands must not move it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import heapq
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from . import device_pool as _pool
+from . import ops as _ops
+from ..obs import record_dispatch as _record_dispatch
+from ..obs import record_retrace as _record_retrace
+from ..columnar.batch import pow2_len as _pow2_len
+from ..columnar.batch import promotes_lossless as _promotes_lossless
+
+__all__ = ["range_mask", "fused_filter_aggregate", "sorted_intersect_mask",
+           "sorted_merge_take", "trace_count", "range_mask_plain",
+           "filter_aggregate_plain", "sorted_intersect_plain",
+           "range_mask_cuda", "filter_aggregate_cuda", "decode_aggregate",
+           "sorted_intersect_cuda"]
+
+_TRACES = {"n": 0}
+_SEEN: set = set()
+
+
+def trace_count() -> int:
+    return _TRACES["n"]
+
+
+def note_shape(kernel: str, *key: Any) -> None:
+    """Count the first sighting of a (kernel, pow2 shape, dtypes) key."""
+    k = (kernel,) + key
+    if k not in _SEEN:
+        _SEEN.add(k)
+        _TRACES["n"] += 1
+        _record_retrace()
+
+
+# (data [N], valid [N] bool, lo, hi) — already in the column's physical
+# (numeric) domain; None bound means unbounded on that side.
+Pred = Tuple[np.ndarray, np.ndarray, Any, Any]
+
+# device operand of one column: (data, valid, lo, hi) with 0-d numpy
+# bounds in the data's dtype (None for aggregate columns)
+Col = Tuple[torch.Tensor, torch.Tensor, Any, Any]
+
+_KERNEL_DTYPES = (np.dtype(np.int64), np.dtype(np.float64),
+                  np.dtype(np.int32))
+
+
+def _prep_bounds(data: np.ndarray, lo: Any, hi: Any
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """Same-dtype 0-d bound arrays (unbounded -> dtype extremes), exactly
+    the reference's ``_prep_bounds``: a bound is cast to the column's
+    dtype, so a float bound on an int column truncates as numpy does."""
+    if np.issubdtype(data.dtype, np.integer):
+        info = np.iinfo(data.dtype)
+        return (np.asarray(info.min if lo is None else lo, data.dtype),
+                np.asarray(info.max if hi is None else hi, data.dtype))
+    return (np.asarray(-np.inf if lo is None else lo, data.dtype),
+            np.asarray(np.inf if hi is None else hi, data.dtype))
+
+
+def _kernel_array(arr: np.ndarray) -> np.ndarray:
+    """Columns reach the kernels as int64, float64 or int32; anything
+    else widens losslessly (bool / small ints -> int64, float32 ->
+    float64).  The main path's columns already have a kernel dtype."""
+    if arr.dtype in _KERNEL_DTYPES:
+        return arr
+    return arr.astype(np.float64 if arr.dtype.kind == "f" else np.int64)
+
+
+def _pad_pred(p: Pred, np2: int) -> Pred:
+    """Length-pad one predicate column to ``np2`` with invalid rows: the
+    row-validity conjunct keeps padding out of the mask."""
+    data, valid, lo, hi = p
+    pad = np2 - data.shape[0]
+    if pad <= 0:
+        return p
+    return (np.concatenate([data, np.zeros(pad, dtype=data.dtype)]),
+            np.concatenate([valid, np.zeros(pad, dtype=bool)]), lo, hi)
+
+
+@functools.lru_cache(maxsize=64)
+def _live_pred(n: int, np2: int) -> Pred:
+    """Unbounded predicate whose validity bitmap is the row-liveness flag
+    (True for the first ``n`` rows): ANDing it in masks padding out.
+    Memoized so repeated no-predicate aggregates hand the buffer pool the
+    same arrays."""
+    live = np.zeros(np2, dtype=bool)
+    live[:n] = True
+    return (np.zeros(np2, dtype=np.float64), live, None, None)
+
+
+def _fetch_cols(preds: Sequence[Pred],
+                aggs: Sequence[Tuple[np.ndarray, np.ndarray]] = ()
+                ) -> Tuple[List[Col], List[Col], List[Any]]:
+    """Pool-fetch predicate and aggregate columns; bounds are prepared in
+    the column's own dtype before any widening."""
+    host: List[np.ndarray] = []
+    bounds = []
+    for data, valid, lo, hi in preds:
+        blo, bhi = _prep_bounds(data, lo, hi)
+        data = _kernel_array(data)
+        bounds.append((blo.astype(data.dtype), bhi.astype(data.dtype)))
+        host += [data, valid]
+    for data, valid in aggs:
+        host += [_kernel_array(data), valid]
+    ops, missed = _pool.fetch(host)
+    k = len(preds)
+    pcols = [(ops[2 * j], ops[2 * j + 1]) + bounds[j] for j in range(k)]
+    acols = [(ops[2 * k + 2 * j], ops[2 * k + 2 * j + 1], None, None)
+             for j in range(len(aggs))]
+    return pcols, acols, missed
+
+
+def _dtype_key(cols: Sequence[Col]) -> Tuple[str, ...]:
+    return tuple(str(c[0].dtype) for c in cols)
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions (the CPU path, and the on-card yardstick)
+# ---------------------------------------------------------------------------
+
+def range_mask_plain(cols: Sequence[Col], n: int) -> torch.Tensor:
+    """K1's plain version: bool [n] over ``n`` (padded) rows."""
+    m = None
+    for x, v, lo, hi in cols:
+        mm = v & (x >= lo.item()) & (x <= hi.item())
+        m = mm if m is None else (m & mm)
+    return m
+
+
+def filter_aggregate_plain(pcols: Sequence[Col], acols: Sequence[Col],
+                           n: int, dev: torch.device
+                           ) -> Tuple[int, List[Tuple]]:
+    """K2's plain version: (survivor count, [(sum, min, max, valid
+    count)] per aggregate column)."""
+    if pcols:
+        mask = range_mask_plain(pcols, n)
+    else:
+        mask = torch.ones(n, dtype=torch.bool, device=dev)
+    total = int(mask.sum())
+    per_col = []
+    for x, v, _lo, _hi in acols:
+        ok = mask & v
+        cnt = int(ok.sum())
+        if x.dtype.is_floating_point:
+            zero, big, small = 0.0, float("inf"), float("-inf")
+        else:
+            x = x.to(torch.int64)
+            info = torch.iinfo(torch.int64)
+            zero, big, small = 0, info.max, info.min
+        s = torch.where(ok, x, zero).sum().item()
+        mn = torch.where(ok, x, big).min().item()
+        mx = torch.where(ok, x, small).max().item()
+        per_col.append((s, mn, mx, cnt))
+    return total, per_col
+
+
+def sorted_intersect_plain(keys: torch.Tensor, n: int,
+                           cands: torch.Tensor) -> torch.Tensor:
+    """K3's plain version: lanes < n of ``keys`` found in sorted
+    ``cands`` (same dtype), lanes >= n false."""
+    m = cands.shape[0]
+    pos = torch.searchsorted(cands, keys)
+    hit = (pos < m) & (cands[pos.clamp(max=m - 1)] == keys)
+    hit[n:] = False
+    return hit
+
+
+# ---------------------------------------------------------------------------
+# CUDA launch glue (csrc/range_mask.cu, filter_aggregate.cu,
+# sorted_intersect.cu); each wrapper counts its launches
+# ---------------------------------------------------------------------------
+
+class ColDesc(ctypes.Structure):
+    """Mirror of ``struct ColDesc`` in csrc/common.cuh."""
+    _fields_ = [("data", ctypes.c_void_p), ("valid", ctypes.c_void_p),
+                ("lo_i", ctypes.c_int64), ("hi_i", ctypes.c_int64),
+                ("lo_f", ctypes.c_double), ("hi_f", ctypes.c_double),
+                ("dtype", ctypes.c_int32), ("pad_", ctypes.c_int32)]
+
+
+_DT_TAG = {torch.int64: 0, torch.float64: 1, torch.int32: 2}
+_MAX_COLS = 8                       # csrc/common.cuh MAX_COLS
+_AGG_THREADS = 256                  # csrc/filter_aggregate.cu THREADS
+
+
+def _descs(cols: Sequence[Col]) -> ctypes.Array:
+    arr = (ColDesc * max(len(cols), 1))()
+    for j, (x, v, lo, hi) in enumerate(cols):
+        if not (x.is_cuda and v.is_cuda and v.dtype == torch.bool
+                and x.is_contiguous() and v.is_contiguous()
+                and x.dtype in _DT_TAG):
+            raise TypeError(f"kernel operand {j}: contiguous CUDA "
+                            f"int64/float64/int32 data with a bool "
+                            f"validity bitmap expected, got {x.dtype} on "
+                            f"{x.device}")
+        d = arr[j]
+        d.data, d.valid = x.data_ptr(), v.data_ptr()
+        d.dtype = _DT_TAG[x.dtype]
+        if lo is not None:
+            if x.dtype == torch.float64:
+                d.lo_f, d.hi_f = float(lo), float(hi)
+            else:
+                d.lo_i, d.hi_i = int(lo), int(hi)
+    return arr
+
+
+def _fn(name: str, argtypes: Sequence[Any]) -> Any:
+    f = getattr(_ops.lib(), name)
+    f.restype = ctypes.c_int
+    f.argtypes = list(argtypes)
+    return f
+
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+
+
+def range_mask_cuda(cols: Sequence[Col], n: int) -> torch.Tensor:
+    """K1 on the card: bool [n]."""
+    out = torch.empty(n, dtype=torch.bool, device=cols[0][0].device)
+    f = _fn("rt_range_mask", [_P, _I, _L, _P, _P])
+    rc = f(ctypes.cast(_descs(cols), _P), len(cols), n, out.data_ptr(),
+           _ops.stream(out))
+    range_mask_cuda.launches += 1
+    _ops.check(rc, "range_mask")
+    return out
+
+
+range_mask_cuda.launches = 0
+
+
+def agg_blocks(n: int) -> int:
+    """Grid of K2's partial pass: a function of n only, so the fold order
+    (and every float64 sum) is reproducible at a given n."""
+    return max(1, min(-(-n // _AGG_THREADS), 132 * 4))
+
+
+def filter_aggregate_cuda(pcols: Sequence[Col], acols: Sequence[Col],
+                          n: int, dev: torch.device) -> torch.Tensor:
+    """K2 on the card.  Returns the raw int64 result row on the device:
+    ``[count, (valid count, sum, min, max) per aggregate column]`` with
+    float64 slots as raw bits (see :func:`decode_aggregate`)."""
+    if len(pcols) > _MAX_COLS:
+        raise ValueError(f"fused_filter_aggregate takes at most "
+                         f"{_MAX_COLS} predicate columns, got {len(pcols)}")
+    m = len(acols)
+    blocks = agg_blocks(n)
+    part = torch.empty((blocks, 1 + 4 * _MAX_COLS), dtype=torch.int64,
+                       device=dev)
+    out = torch.empty(1 + 4 * m, dtype=torch.int64, device=dev)
+    f = _fn("rt_filter_aggregate", [_P, _I, _P, _I, _L, _I, _P, _P, _P])
+    rc = f(ctypes.cast(_descs(pcols), _P), len(pcols),
+           ctypes.cast(_descs(acols), _P), m, n, blocks, part.data_ptr(),
+           out.data_ptr(), _ops.stream(out))
+    filter_aggregate_cuda.launches += 1
+    _ops.check(rc, "fused_filter_aggregate")
+    return out
+
+
+filter_aggregate_cuda.launches = 0
+
+
+def decode_aggregate(raw: np.ndarray, acols: Sequence[Col]
+                     ) -> Tuple[int, List[Tuple]]:
+    """K2's raw result row -> the plain version's (count, [(sum, min,
+    max, valid count)]) with python ints / floats per column dtype."""
+    rawf = raw.view(np.float64)
+    per_col = []
+    for j, (x, _v, _lo, _hi) in enumerate(acols):
+        src = rawf if x.dtype == torch.float64 else raw
+        conv = float if x.dtype == torch.float64 else int
+        per_col.append((conv(src[2 + 4 * j]), conv(src[3 + 4 * j]),
+                        conv(src[4 + 4 * j]), int(raw[1 + 4 * j])))
+    return int(raw[0]), per_col
+
+
+def sorted_intersect_cuda(keys: torch.Tensor, n: int,
+                          cands: torch.Tensor) -> torch.Tensor:
+    """K3 on the card: bool [len(keys)], lanes >= n false."""
+    if not (keys.is_cuda and cands.is_cuda and keys.dtype == cands.dtype
+            and keys.dtype in (torch.int64, torch.float64)
+            and keys.is_contiguous() and cands.is_contiguous()):
+        raise TypeError("sorted_intersect_cuda: contiguous CUDA int64 or "
+                        "float64 keys and candidates of one dtype expected")
+    out = torch.empty(keys.shape[0], dtype=torch.bool, device=keys.device)
+    f = _fn("rt_sorted_intersect", [_P, _L, _P, _L, _I, _P, _L, _P])
+    rc = f(keys.data_ptr(), n, cands.data_ptr(), cands.shape[0],
+           int(keys.dtype == torch.float64), out.data_ptr(), out.shape[0],
+           _ops.stream(out))
+    sorted_intersect_cuda.launches += 1
+    _ops.check(rc, "sorted_intersect_mask")
+    return out
+
+
+sorted_intersect_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# dispatching wrappers
+# ---------------------------------------------------------------------------
+
+def range_mask(preds: Sequence[Pred], n: int) -> np.ndarray:
+    """Conjunctive range mask over K predicate columns -> bool [n]."""
+    if n == 0:
+        return np.zeros(0, dtype=bool)
+    if not preds:
+        return np.ones(n, dtype=bool)
+    np2 = max(_pow2_len(n), max(int(p[0].shape[0]) for p in preds))
+    pcols, _, missed = _fetch_cols([_pad_pred(p, np2) for p in preds])
+    note_shape("range_mask", np2, _dtype_key(pcols))
+    if pcols[0][0].is_cuda:
+        out_t = range_mask_cuda(pcols, np2)
+    else:
+        out_t = range_mask_plain(pcols, np2)
+    out = out_t.cpu().numpy()
+    _record_dispatch("range_mask", h2d=missed, d2h=[out])
+    return out[:n]
+
+
+def fused_filter_aggregate(preds: Sequence[Pred],
+                           aggs: Sequence[Tuple[np.ndarray, np.ndarray]],
+                           n: int) -> Dict[str, Any]:
+    """Filter + reduce in one pass.
+
+    Returns ``{"count", "sums", "mins", "maxs", "cnts"}`` where ``count``
+    is the number of mask survivors and per-aggregate lists are aligned
+    with ``aggs`` (``cnts`` = valid survivors per column; ``mins``/
+    ``maxs`` are None when that is 0).
+    """
+    if n == 0:
+        return {"count": 0, "sums": [0] * len(aggs),
+                "mins": [None] * len(aggs), "maxs": [None] * len(aggs),
+                "cnts": [0] * len(aggs)}
+    np2 = max([_pow2_len(n)] + [int(a[0].shape[0]) for a in aggs]
+              + [int(p[0].shape[0]) for p in preds])
+    if preds:                  # padded rows are invalid in every conjunct
+        preds = [_pad_pred(p, np2) for p in preds]
+    elif np2 != n:             # no predicate: mask out padding explicitly
+        preds = [_live_pred(n, np2)]
+    padded_aggs = []
+    for data, valid in aggs:
+        pad = np2 - data.shape[0]
+        if pad > 0:
+            data = np.concatenate([data, np.zeros(pad, dtype=data.dtype)])
+            valid = np.concatenate([valid, np.zeros(pad, dtype=bool)])
+        padded_aggs.append((data, valid))
+    pcols, acols, missed = _fetch_cols(preds, padded_aggs)
+    note_shape("fused_filter_aggregate", np2, _dtype_key(pcols),
+               _dtype_key(acols))
+    dev = _ops.target()
+    if dev.type == "cuda":
+        raw = filter_aggregate_cuda(pcols, acols, np2, dev).cpu().numpy()
+        total, per_col = decode_aggregate(raw, acols)
+        _record_dispatch("fused_filter_aggregate", h2d=missed, d2h=[raw])
+    else:
+        total, per_col = filter_aggregate_plain(pcols, acols, np2, dev)
+        _record_dispatch("fused_filter_aggregate", h2d=missed)
+    out: Dict[str, Any] = {"count": total, "sums": [], "mins": [],
+                           "maxs": [], "cnts": []}
+    for s, mn, mx, cnt in per_col:
+        out["cnts"].append(cnt)
+        out["sums"].append(s)
+        out["mins"].append(mn if cnt else None)
+        out["maxs"].append(mx if cnt else None)
+    return out
+
+
+def _sorted_merge_mask(keys: np.ndarray, cands: np.ndarray) -> np.ndarray:
+    """Host (numpy) sorted merge: the object-dtype pk fallback in
+    columnar/operators (no device kernel takes object keys)."""
+    n = keys.shape[0]
+    pos = np.searchsorted(keys, cands)
+    posc = np.clip(pos, 0, n - 1)
+    hit = (pos < n) & (keys[posc] == cands)
+    mask = np.zeros(n, dtype=bool)
+    mask[posc[hit]] = True
+    return mask
+
+
+def _promote(keys: np.ndarray, cands: np.ndarray
+             ) -> Tuple[np.ndarray, np.ndarray]:
+    """Both sides in their promoted dtype (int64 or float64), as the x64
+    searchsorted compares them."""
+    dt = np.result_type(keys.dtype, cands.dtype)
+    if dt == np.uint64:
+        raise TypeError("sorted_intersect_mask: uint64 keys have no exact "
+                        "int64/float64 kernel dtype")
+    dt = np.dtype(np.float64 if dt.kind == "f" else np.int64)
+    return keys.astype(dt, copy=False), cands.astype(dt, copy=False)
+
+
+def sorted_intersect_mask(keys: np.ndarray, cands: np.ndarray
+                          ) -> np.ndarray:
+    """Position bitmap of a sorted candidate-PK array over a partition's
+    sorted live-pk array: ``mask[i] == (keys[i] in cands)``.  Empty
+    inputs short-circuit (no zero-length kernel launch)."""
+    n, m = int(keys.shape[0]), int(cands.shape[0])
+    if n == 0 or m == 0:
+        return np.zeros(n, dtype=bool)
+    keys, cands = _promote(keys, cands)
+    kp, cp = _pool.padded(keys, "edge"), _pool.padded(cands, "edge")
+    ops, missed = _pool.fetch([kp, cp])
+    note_shape("sorted_intersect_mask", kp.shape[0], cp.shape[0],
+               str(kp.dtype))
+    if ops[0].is_cuda:
+        out_t = sorted_intersect_cuda(ops[0], n, ops[1])
+    else:
+        out_t = sorted_intersect_plain(ops[0], n, ops[1])
+    out = out_t.cpu().numpy()
+    _record_dispatch("sorted_intersect_mask", h2d=missed, d2h=[out])
+    return out[:n]
+
+
+# ---------------------------------------------------------------------------
+# sorted k-way merge (columnar LSM merge path)
+# ---------------------------------------------------------------------------
+
+def _py_scalar_array(a: np.ndarray) -> np.ndarray:
+    """Numeric array -> object array of python scalars, whose arbitrary-
+    precision comparisons are exact across int/float domains."""
+    out = np.empty(a.shape[0], dtype=object)
+    for j, v in enumerate(a.tolist()):
+        out[j] = v
+    return out
+
+
+def _merge_take_object(arrays: Sequence[np.ndarray],
+                       offs: Sequence[int]) -> Tuple[np.ndarray, np.ndarray]:
+    """Host merge for object-dtype keys (string / tuple pks): heapq merge
+    of the per-component sorted runs; ties sort by component rank, so the
+    first entry of each key group is the newest version."""
+    def entries(i: int):
+        a, off = arrays[i], offs[i]
+        return ((a[j], i, off + j) for j in range(a.shape[0]))
+
+    keys_l: List[Any] = []
+    take_l: List[int] = []
+    prev = sentinel = object()
+    for key, _rank, pos in heapq.merge(
+            *(entries(i) for i in range(len(arrays)) if arrays[i].shape[0])):
+        if prev is sentinel or key != prev:
+            keys_l.append(key)
+            take_l.append(pos)
+            prev = key
+    out = np.empty(len(keys_l), dtype=object)
+    for j, k in enumerate(keys_l):
+        out[j] = k
+    return out, np.asarray(take_l, dtype=np.int64)
+
+
+def sorted_merge_take(key_arrays: Sequence[np.ndarray],
+                      tombs: Optional[Sequence[np.ndarray]] = None,
+                      *, drop_tombstones: bool = False
+                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Vectorized k-way sorted-PK merge/dedup/tombstone-drop: the LSM
+    merge kernel.
+
+    ``key_arrays`` are per-component sorted, per-component-unique key
+    arrays ordered newest -> oldest.  Returns ``(keys, take, tomb)``
+    where ``keys`` is the sorted key union with the newest component
+    winning each duplicate, ``take`` indexes the winning entries in the
+    concatenation of ``key_arrays`` so every column of the merged output
+    is a single gather, and ``tomb`` marks entries whose winner is a
+    tombstone.  With ``drop_tombstones`` those entries are removed.
+
+    Numeric keys take the reference's TPU-branch shape: K3 marks each
+    component's keys in the sorted union, and because every component
+    key appears in the union, an exclusive cumsum of that bitmap is the
+    rank of union[j] within the component.  Object keys fall back to a
+    host heapq merge.
+    """
+    arrays = [np.asarray(a) for a in key_arrays]
+    lens = [int(a.shape[0]) for a in arrays]
+    offs = [0] * len(arrays)
+    for i in range(1, len(arrays)):
+        offs[i] = offs[i - 1] + lens[i - 1]
+    nonempty = [i for i, l in enumerate(lens) if l]
+    if not nonempty:
+        z = np.zeros(0, dtype=np.int64)
+        return z, z.copy(), np.zeros(0, dtype=bool)
+    # mixed dtypes promote on concat: require a lossless round-trip
+    # into the promoted dtype or fall back to the exact object merge
+    numeric = all(arrays[i].dtype != object
+                  and arrays[i].dtype.kind in "biuf" for i in nonempty) \
+        and _promotes_lossless([arrays[i] for i in nonempty])
+    if numeric:
+        union = np.unique(np.concatenate([arrays[i] for i in nonempty]))
+        take = np.full(union.shape[0], -1, dtype=np.int64)
+        for i in nonempty:                  # newest first: first hit wins
+            mem = sorted_intersect_mask(union, arrays[i])
+            pos = np.cumsum(mem) - mem      # exclusive cumsum == rank in c
+            sel = (take < 0) & mem
+            take[sel] = offs[i] + pos[sel]
+    else:
+        arrays = [a if a.dtype == object else _py_scalar_array(a)
+                  for a in arrays]
+        union, take = _merge_take_object(arrays, offs)
+    if tombs is None:
+        return union, take, np.zeros(take.shape[0], dtype=bool)
+    tomb_all = np.concatenate(
+        [np.asarray(t, dtype=bool) for t, l in zip(tombs, lens) if l]) \
+        if any(lens) else np.zeros(0, dtype=bool)
+    tomb = tomb_all[take]
+    if drop_tombstones and tomb.any():
+        keep = ~tomb
+        union, take, tomb = union[keep], take[keep], tomb[keep]
+    return union, take, tomb

@@ -1,0 +1,315 @@
+"""On-card checks and timings of the four kernels against their plain
+versions, at the shapes the main path gives them.
+
+``chip_smoke.py`` and ``tests/test_torch_kernels_gpu.py`` use this module;
+it needs a CUDA device.  Every case builds its inputs from a numpy seed on
+the card, runs the kernel and its plain PyTorch version on the same
+tensors, and compares them: masks and counts exactly, float64 sums within
+``SUM_RTOL`` relative (the kernel folds partial sums in a fixed tree
+order, the plain version in torch's order).
+
+Two times are taken per call, with the L2 cache flushed before each call
+(the main path meets its operands cold): ``ms``, the device time of the
+kernels the call runs (CUDA kernel, memset and copy durations from
+``torch.profiler``, less the flush's own), and ``call_ms``, CUDA events
+around the Python call, which adds the host's launch overhead.  The bound
+is the least time the card could take: the bytes the function must move
+(each input read once, each output written once) over device memory
+bandwidth, or its scalar operations over the non-tensor-core rate,
+whichever is larger.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from . import columnar_ops as CO
+from . import fuzzy_ops as FO
+from .columnar_ops import _prep_bounds
+
+__all__ = ["KERNELS", "SUM_RTOL", "launch_counts", "reset_launch_counts",
+           "k1_case", "k2_case", "k3_case", "k4_case", "main_path_cases",
+           "run_case", "device_ms"]
+
+# H100 SXM (NVIDIA data sheet): HBM3 bandwidth and the FP32 rate outside
+# the tensor cores, the rate used for the kernels' scalar compares/adds
+HBM_BYTES_PER_S = 3.35e12
+SCALAR_OPS_PER_S = 67e12
+SUM_RTOL = 1e-9
+
+KERNELS = {
+    "range_mask": {
+        "source": "src/repro_torch/kernels/csrc/range_mask.cu",
+        "replaces": "src/repro/kernels/columnar_ops.py:234",
+        "wrapper": CO.range_mask_cuda},
+    "fused_filter_aggregate": {
+        "source": "src/repro_torch/kernels/csrc/filter_aggregate.cu",
+        "replaces": "src/repro/kernels/columnar_ops.py:243",
+        "wrapper": CO.filter_aggregate_cuda},
+    "sorted_intersect_mask": {
+        "source": "src/repro_torch/kernels/csrc/sorted_intersect.cu",
+        "replaces": "src/repro/kernels/columnar_ops.py:455",
+        "wrapper": CO.sorted_intersect_cuda},
+    "t_occurrence_mask": {
+        "source": "src/repro_torch/kernels/csrc/t_occurrence.cu",
+        "replaces": "src/repro/kernels/fuzzy_ops.py:112",
+        "wrapper": FO.tocc_cuda},
+}
+
+
+def launch_counts() -> Dict[str, int]:
+    return {k: v["wrapper"].launches for k, v in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for v in KERNELS.values():
+        v["wrapper"].launches = 0
+
+
+# ---------------------------------------------------------------------------
+# cases: inputs from a numpy seed, on the card
+# ---------------------------------------------------------------------------
+
+def _columns(rng: np.random.Generator, n: int, kinds: List[str],
+             bounds: bool, dev: torch.device) -> list:
+    """TinySocial-like columns: int64 epoch-microsecond timestamps (far
+    beyond 2**24), int64 ids, float64 with NaN, int32 dictionary codes."""
+    cols = []
+    for kind in kinds:
+        valid = rng.random(n) < 0.95
+        if kind == "ts":
+            x = 1_388_534_400_000_000 + rng.integers(
+                0, 120 * 86_400_000_000, n, dtype=np.int64)
+            lo, hi = 1_391_212_800_000_000, 1_396_000_000_000_000
+        elif kind == "id":
+            x = rng.integers(0, 200_000, n, dtype=np.int64)
+            lo, hi = 1_000, 150_000
+        elif kind == "f64":
+            x = rng.normal(1e3, 3e2, n)
+            x[rng.random(n) < 0.01] = np.nan
+            lo, hi = 900.0, None
+        else:                                  # "code": int32 dictionary
+            x = rng.integers(0, 50, n).astype(np.int32)
+            lo, hi = 5, 40
+        blo, bhi = _prep_bounds(x, lo, hi) if bounds else (None, None)
+        cols.append((torch.from_numpy(x).to(dev),
+                     torch.from_numpy(valid).to(dev), blo, bhi))
+    return cols
+
+
+def _col_bytes(cols: list, n: int) -> int:
+    return sum(c[0].element_size() * n + n for c in cols)
+
+
+def k1_case(n: int, kinds: List[str], seed: int, dev: torch.device
+            ) -> Dict[str, Any]:
+    rng = np.random.default_rng(seed)
+    cols = _columns(rng, n, kinds, True, dev)
+    return {"kernel": "range_mask", "label": f"n={n} K={len(cols)}",
+            "run": lambda: CO.range_mask_cuda(cols, n),
+            "plain": lambda: CO.range_mask_plain(cols, n),
+            "library": None,
+            "compare": _mask_compare,
+            "bytes": _col_bytes(cols, n) + n,
+            "ops": 2 * len(cols) * n}
+
+
+def _agg_compare(got: torch.Tensor, ref: tuple, acols: list) -> float:
+    total, per_col = CO.decode_aggregate(got.cpu().numpy(), acols)
+    rtotal, rper = ref
+    if total != rtotal:
+        return math.inf
+    err = 0.0
+    for (s, mn, mx, c), (rs, rmn, rmx, rc) in zip(per_col, rper):
+        if c != rc:
+            return math.inf
+        for a, b in ((mn, rmn), (mx, rmx)):
+            if c and not (a == b or (isinstance(a, float) and math.isnan(a)
+                                     and math.isnan(b))):
+                return math.inf
+        if isinstance(s, float):
+            if math.isnan(s) or math.isnan(rs):
+                if not (math.isnan(s) and math.isnan(rs)):
+                    return math.inf
+                continue
+            d = abs(s - rs)
+            if d > SUM_RTOL * max(abs(s), abs(rs), 1.0):
+                return math.inf
+            err = max(err, d)
+        elif s != rs:
+            return math.inf
+    return err
+
+
+def k2_case(n: int, pred_kinds: List[str], agg_kinds: List[str], seed: int,
+            dev: torch.device) -> Dict[str, Any]:
+    rng = np.random.default_rng(seed)
+    pcols = _columns(rng, n, pred_kinds, True, dev)
+    acols = _columns(rng, n, agg_kinds, False, dev)
+    return {"kernel": "fused_filter_aggregate",
+            "label": f"n={n} K={len(pcols)} M={len(acols)}",
+            "run": lambda: CO.filter_aggregate_cuda(pcols, acols, n, dev),
+            "plain": lambda: CO.filter_aggregate_plain(pcols, acols, n, dev),
+            "library": None,
+            "compare": lambda got, ref: _agg_compare(got, ref, acols),
+            "bytes": _col_bytes(pcols, n) + _col_bytes(acols, n)
+            + 8 * (1 + 4 * len(acols)),
+            "ops": (2 * len(pcols) + 4 * len(acols)) * n}
+
+
+def _mask_compare(got: torch.Tensor, ref: torch.Tensor) -> float:
+    return 0.0 if torch.equal(got, ref) else 1.0
+
+
+def k3_case(n: int, m: int, seed: int, dev: torch.device,
+            dtype: torch.dtype = torch.int64) -> Dict[str, Any]:
+    """Merge shape: ``n`` union keys, one component's ``m`` keys (every
+    component key is in the union, as in sorted_merge_take)."""
+    rng = np.random.default_rng(seed)
+    union = np.unique(rng.integers(0, 4 * n, 2 * n, dtype=np.int64))[:n]
+    n = int(union.shape[0])
+    comp = np.sort(rng.choice(union, m, replace=False))
+    if dtype == torch.float64:
+        union, comp = union.astype(np.float64), comp.astype(np.float64)
+    keys = torch.from_numpy(union).to(dev)
+    cands = torch.from_numpy(comp).to(dev)
+    return {"kernel": "sorted_intersect_mask", "label": f"n={n} m={m}",
+            "run": lambda: CO.sorted_intersect_cuda(keys, n, cands),
+            "plain": lambda: CO.sorted_intersect_plain(keys, n, cands),
+            "library": lambda: torch.isin(keys, cands),
+            "compare": _mask_compare,
+            "bytes": 8 * n + 8 * m + n,
+            "ops": n * max(1, math.ceil(math.log2(max(m, 2))))}
+
+
+def k4_case(n: int, m: int, threshold: int, seed: int, dev: torch.device,
+            tiers: int = 4) -> Dict[str, Any]:
+    """``m`` posting positions over ``n`` rows in ``tiers`` segments of
+    resident arrays (row offsets as in the storage concat)."""
+    rng = np.random.default_rng(seed)
+    per = n // tiers
+    segs = []
+    for t in range(tiers):
+        pos = np.sort(rng.integers(0, per, m // tiers, dtype=np.int64))
+        segs.append((torch.from_numpy(pos).to(dev), 0, int(pos.shape[0]),
+                     t * per))
+    flat = torch.cat([s[0] + s[3] for s in segs])
+    return {"kernel": "t_occurrence_mask",
+            "label": f"n={n} m={m} T={threshold}",
+            "run": lambda: FO.tocc_cuda(segs, n, n, threshold),
+            "plain": lambda: FO.tocc_plain(segs, n, n, threshold),
+            "library": lambda: torch.bincount(flat, minlength=n) >= threshold,
+            "compare": _mask_compare,
+            "bytes": 8 * m + n,
+            "ops": m}
+
+
+def main_path_cases(dev: torch.device, seed: int = 0) -> List[Dict]:
+    """The kernels at the shapes the main path gives them: a TinySocial
+    messages partition of 2**19 rows (2M messages over 4 partitions) with
+    K = 2 predicates and M = 2 aggregates; a tiered merge of four 2**16
+    flushes into a 2**18-key union; a quarter-range index probe of 2**17
+    positions over the partition, at T = 1 and T = 3."""
+    n = 1 << 19
+    return [k1_case(n, ["ts", "id"], seed, dev),
+            k2_case(n, ["ts", "id"], ["id", "f64"], seed + 1, dev),
+            k3_case(1 << 18, 1 << 16, seed + 2, dev),
+            k4_case(n, 1 << 17, 1, seed + 3, dev),
+            k4_case(n, 1 << 19, 3, seed + 4, dev)]
+
+
+# ---------------------------------------------------------------------------
+# running one case
+# ---------------------------------------------------------------------------
+
+_FLUSH: List[Optional[torch.Tensor]] = [None]
+
+
+def _flush() -> None:
+    """Evict the 50 MB L2 cache (write a 256 MB buffer)."""
+    if _FLUSH[0] is None:
+        _FLUSH[0] = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+    _FLUSH[0].zero_()
+
+
+def device_ms(fn: Callable[[], Any], iters: int = 1) -> float:
+    """Device time of ``fn``'s CUDA work per call: kernel, memset and
+    memcpy durations recorded by ``torch.profiler`` (CUPTI); 0 when
+    ``fn`` ran nothing on the device."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages())
+    return us / 1e3 / iters
+
+
+def _time_ms(fn: Callable[[], Any], iters: int, warmup: int = 2
+             ) -> Dict[str, float]:
+    """Per call, L2 flushed before each: device time (profiler, flush
+    subtracted) and CUDA-event time around the call."""
+    for _ in range(warmup):
+        fn()
+    flush_ms = device_ms(_flush, iters)
+    if flush_ms <= 0:
+        raise RuntimeError("torch.profiler recorded no device time")
+
+    def flushed():
+        _flush()
+        fn()
+    dev = device_ms(flushed, iters) - flush_ms
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(iters):
+        _flush()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        pairs.append((s, e))
+    torch.cuda.synchronize()
+    call = sum(s.elapsed_time(e) for s, e in pairs) / iters
+    return {"ms": max(dev, 0.0), "call_ms": call}
+
+
+def run_case(case: Dict[str, Any], iters: int = 20, timed: bool = True
+             ) -> Dict[str, Any]:
+    """Check the kernel against its plain version on the same inputs,
+    then (``timed``) time kernel, plain version and library call."""
+    counts0 = launch_counts()
+    got = case["run"]()
+    torch.cuda.synchronize()
+    ref = case["plain"]()
+    err = case["compare"](got, ref)
+    again = case["run"]()                 # the kernel is deterministic
+    torch.cuda.synchronize()
+    stable = torch.equal(got, again)
+    out = {"kernel": case["kernel"], "label": case["label"],
+           "max_abs_err": err, "ok": bool(math.isfinite(err) and stable
+                                           and (err == 0.0 or case["kernel"]
+                                                == "fused_filter_aggregate")),
+           "bound_ms": 1e3 * max(case["bytes"] / HBM_BYTES_PER_S,
+                                 case["ops"] / SCALAR_OPS_PER_S),
+           "bound_by": "bytes" if case["bytes"] / HBM_BYTES_PER_S
+           >= case["ops"] / SCALAR_OPS_PER_S else "operations"}
+    if timed:
+        t = _time_ms(case["run"], iters)
+        out["ms"], out["call_ms"] = t["ms"], t["call_ms"]
+        t = _time_ms(case["plain"], max(3, iters // 4))
+        out["plain_ms"], out["plain_call_ms"] = t["ms"], t["call_ms"]
+        out["library_ms"] = out["library_call_ms"] = None
+        if case["library"] is not None:
+            t = _time_ms(case["library"], iters)
+            out["library_ms"], out["library_call_ms"] = t["ms"], t["call_ms"]
+    # checking and timing launches are not main-path launches
+    for k, v in counts0.items():
+        KERNELS[k]["wrapper"].launches = v
+    return out

@@ -1,0 +1,111 @@
+"""Guards of the PyTorch port: it imports neither jax nor the reference
+package, and it never falls back from the card to the CPU quietly."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
+    + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield (node.module or "").split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_file_imports_no_jax_or_reference(path):
+    roots = set(_imported_roots(path))
+    assert not roots & {"jax", "jaxlib", "repro"}, (path, roots)
+
+
+def test_port_runs_a_query_with_jax_and_reference_blocked():
+    code = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+import datetime as dt
+import repro_torch
+repro_torch.set_device("cpu")
+from repro_torch.configs.tinysocial import build_dataverse
+from repro_torch.core import algebra as A
+from repro_torch.storage.query import run_query
+_, ds = build_dataverse(60, 300, num_partitions=2, flush_threshold=32)
+lo, hi = dt.datetime(2014, 1, 10), dt.datetime(2014, 2, 10)
+plan = A.aggregate(A.select(A.scan("MugshotMessages"),
+                            pred=lambda r: lo <= r["timestamp"] <= hi,
+                            fields=["timestamp"],
+                            ranges={"timestamp": (lo, hi)}),
+                   {"c": ("count", "*")})
+rows, ex = run_query(plan, ds, vectorize=True)
+assert ex.stats.rows_fallback == 0 and rows[0]["c"] > 0
+assert not any(m == "jax" or m.startswith(("jax.", "repro."))
+               for m in sys.modules if sys.modules[m] is not None)
+print("OK", rows[0]["c"])
+"""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.startswith("OK")
+
+
+def test_entry_points_raise_without_a_card_unless_cpu_is_chosen():
+    import torch
+    import repro_torch
+    from repro_torch.kernels import columnar_ops as K
+    from repro_torch.kernels import fuzzy_ops as F
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    x = np.arange(16, dtype=np.int64)
+    v = np.ones(16, bool)
+    repro_torch.set_device("cuda")
+    try:
+        assert repro_torch.device() == "cuda"
+        for call in (lambda: K.range_mask([(x, v, 1, 5)], 16),
+                     lambda: K.fused_filter_aggregate([], [(x, v)], 16),
+                     lambda: K.sorted_intersect_mask(x, x[::2]),
+                     lambda: F.t_occurrence_mask(x, 16, 1)):
+            with pytest.raises(RuntimeError, match="set_device"):
+                call()
+    finally:
+        repro_torch.set_device("cpu")
+
+
+def test_set_device_rejects_unknown_names():
+    import repro_torch
+    with pytest.raises(ValueError):
+        repro_torch.set_device("tpu")
+
+
+def test_run_query_refuses_a_mesh():
+    import repro_torch
+    from repro_torch.configs.tinysocial import build_dataverse
+    from repro_torch.core import algebra as A
+    from repro_torch.storage.query import run_query
+    repro_torch.set_device("cpu")
+    _, ds = build_dataverse(10, 20, num_partitions=2, flush_threshold=8)
+    with pytest.raises(NotImplementedError, match="rung 4"):
+        run_query(A.scan("MugshotUsers"), ds, vectorize=True, mesh=2)
+
+
+def test_ngram_index_refused_until_fuzzy_slice():
+    import repro_torch
+    from repro_torch.configs.tinysocial import build_dataverse
+    repro_torch.set_device("cpu")
+    _, ds = build_dataverse(10, 20, num_partitions=2, flush_threshold=8)
+    with pytest.raises(NotImplementedError, match="fuzzy slice"):
+        ds["MugshotUsers"].create_index("name", kind="ngram")

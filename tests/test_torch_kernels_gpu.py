@@ -1,0 +1,114 @@
+"""The PyTorch port's CUDA kernels (K1-K4) against their plain PyTorch
+versions on the card, at small shapes and at the main path's shapes, and
+the port's query path on the card against the same path on the CPU.
+
+Marked ``gpu``: every test needs a CUDA device and ``nvcc`` and skips
+without one.  Run on the card with
+``python -m pytest -m gpu tests/test_torch_kernels_gpu.py``.
+"""
+
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.kernels import selfcheck as SC
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode; "
+                    "their plain versions are tested on the CPU)")
+    repro_torch.set_device("cuda")
+    yield torch.device("cuda", 0)
+    repro_torch.set_device("cpu")
+
+
+SMALL_N = [1, 37, 1000, 70_001]
+
+
+@pytest.mark.parametrize("n", SMALL_N)
+@pytest.mark.parametrize("kinds", [["ts"], ["id", "f64"], ["code", "ts"],
+                                   ["id", "ts", "f64", "code"] * 3])
+def test_range_mask_kernel(dev, n, kinds):
+    r = SC.run_case(SC.k1_case(n, kinds, seed=n, dev=dev), timed=False)
+    assert r["ok"], r
+
+
+@pytest.mark.parametrize("n", SMALL_N)
+@pytest.mark.parametrize("preds,aggs", [
+    (["ts", "id"], ["id", "f64"]), ([], ["f64", "code"]), (["code"], []),
+    (["f64"], ["id", "ts", "f64", "code"] * 3)])
+def test_filter_aggregate_kernel(dev, n, preds, aggs):
+    r = SC.run_case(SC.k2_case(n, preds, aggs, seed=n + 1, dev=dev),
+                    timed=False)
+    assert r["ok"], r
+
+
+@pytest.mark.parametrize("sizes", [(1, 1), (50, 20), (5000, 64),
+                                   (100_000, 30_000)])
+@pytest.mark.parametrize("dtype", [torch.int64, torch.float64])
+def test_sorted_intersect_kernel(dev, sizes, dtype):
+    n, m = sizes
+    r = SC.run_case(SC.k3_case(n, m, seed=n + m, dev=dev, dtype=dtype),
+                    timed=False)
+    assert r["ok"], r
+
+
+@pytest.mark.parametrize("threshold", [1, 2, 3])
+@pytest.mark.parametrize("sizes,tiers", [((8, 8), 1), ((1000, 3000), 4),
+                                         ((64_000, 40_000), 40)])
+def test_t_occurrence_kernel(dev, threshold, sizes, tiers):
+    n, m = sizes
+    r = SC.run_case(SC.k4_case(n, m, threshold, seed=n + threshold, dev=dev,
+                               tiers=tiers), timed=False)
+    assert r["ok"], r
+
+
+@pytest.mark.parametrize("i", range(5))
+def test_main_path_shapes(dev, i):
+    r = SC.run_case(SC.main_path_cases(dev)[i], timed=False)
+    assert r["ok"], r
+
+
+def test_query_path_on_card_equals_cpu(dev):
+    """TinySocial ingested and queried on the card gives the rows, the
+    stored records and the engine accounting of the same run on the
+    CPU."""
+    import datetime as dt
+    from repro_torch.configs.tinysocial import build_dataverse
+    from repro_torch.core import algebra as A
+    from repro_torch.storage.query import run_query
+    lo = dt.datetime(2014, 2, 1)
+    plans = [
+        A.select(A.scan("MugshotMessages"),
+                 pred=lambda r: r["timestamp"] >= lo, fields=["timestamp"],
+                 ranges={"timestamp": (lo, dt.datetime(2015, 1, 1))}),
+        A.aggregate(A.select(A.scan("MugshotMessages"),
+                             pred=lambda r: r["timestamp"] >= lo,
+                             fields=["timestamp"],
+                             ranges={"timestamp": (lo, None)},
+                             ranges_exact=True, hints=["skip-index"]),
+                    {"c": ("count", "*"), "s": ("sum", "author-id")}),
+        A.select(A.scan("MugshotMessages"),
+                 pred=lambda r: r["timestamp"] >= lo, fields=["timestamp"],
+                 ranges={"timestamp": (lo, None)}, hints=["skip-index"]),
+    ]
+    out = {}
+    for name in ("cuda", "cpu"):
+        repro_torch.set_device(name)
+        _, ds = build_dataverse(400, 6000, num_partitions=3,
+                                flush_threshold=100)
+        res = []
+        for plan in plans:
+            rows, ex = run_query(plan, ds, vectorize=True)
+            res.append((sorted(repr(sorted(r.items())) for r in rows),
+                        ex.stats.rows_fallback, ex.stats.rows_vectorized))
+        res.append(sorted(repr(sorted(r.items()))
+                          for r in ds["MugshotMessages"].scan()))
+        out[name] = res
+    repro_torch.set_device("cuda")
+    assert out["cuda"] == out["cpu"]
+    assert all(v > 0 for v in SC.launch_counts().values())

@@ -1,0 +1,379 @@
+"""The slice test of the PyTorch port: the TinySocial columnar query path
+(rung 2) through ``repro_torch.storage.query.run_query(..., vectorize=
+True)`` against the reference's ``repro.storage.query.run_query`` on the
+same seeded data, with the reference's fused plan cache disabled (rung 3
+is not ported).
+
+Rows must agree exactly under the differential harness's canonical form
+(float64 aggregate values within 1e-12 relative: the sum order differs),
+and so must the engines' accounting: ``rows_fallback``,
+``fallback_reasons``, ``rows_vectorized`` and ``rows_index_vectorized``.
+Seeded lifecycle schedules (insert, insert_batch, delete, flush, merge,
+crash_and_recover) replay the same operations in both packages.  The
+reference is imported under a test-side ``jax.experimental.enable_x64``
+shim that is removed again when this module's tests end.
+"""
+
+import contextlib
+import datetime as dt
+import math
+import random
+import sys
+import types
+
+import pytest
+
+jax = pytest.importorskip("jax")
+
+import repro_torch  # noqa: E402
+from repro_torch import obs as P_obs  # noqa: E402
+from repro_torch.configs import tinysocial as P_ts  # noqa: E402
+from repro_torch.core import adm as P_adm  # noqa: E402
+from repro_torch.core import algebra as P_A  # noqa: E402
+from repro_torch.core import functions as P_fn  # noqa: E402
+from repro_torch.core import lsm as P_lsm  # noqa: E402
+from repro_torch.storage import dataset as P_dsm  # noqa: E402
+from repro_torch.storage import query as P_q  # noqa: E402
+from repro_torch.storage.carry import dataset_from_reference  # noqa: E402
+
+PORT = types.SimpleNamespace(A=P_A, adm=P_adm, fn=P_fn, lsm=P_lsm,
+                             dsm=P_dsm, run_query=P_q.run_query, ts=P_ts)
+
+
+@contextlib.contextmanager
+def _reference_x64():
+    """Import the reference with ``jax.experimental.enable_x64`` restored
+    as a wrapper of ``jax.enable_x64(True)``; on exit drop the reference
+    modules imported meanwhile and the shim itself."""
+    import jax.experimental as jexp
+    had = hasattr(jexp, "enable_x64")
+    before = set(sys.modules)
+    if not had:
+        @contextlib.contextmanager
+        def enable_x64():
+            with jax.enable_x64(True):
+                yield
+        jexp.enable_x64 = enable_x64
+    try:
+        yield
+    finally:
+        for name in sorted(set(sys.modules) - before, reverse=True):
+            if name == "repro" or name.startswith("repro."):
+                mod = sys.modules.pop(name)
+                parent, _, child = name.rpartition(".")
+                if getattr(sys.modules.get(parent), child, None) is mod:
+                    delattr(sys.modules[parent], child)
+        if not had:
+            del jexp.enable_x64
+
+
+@pytest.fixture(scope="module")
+def REF():
+    with _reference_x64():
+        from repro.columnar import plancache
+        from repro.configs import tinysocial
+        from repro.core import adm, algebra, functions, lsm
+        from repro.storage import dataset, query
+        plancache.set_enabled(False)
+        try:
+            yield types.SimpleNamespace(
+                A=algebra, adm=adm, fn=functions, lsm=lsm, dsm=dataset,
+                run_query=query.run_query, ts=tinysocial)
+        finally:
+            plancache.set_enabled(True)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _cpu():
+    repro_torch.set_device("cpu")
+
+
+# ---------------------------------------------------------------------------
+# comparison
+# ---------------------------------------------------------------------------
+
+def _canon(rows):
+    """``test_differential._canon`` with float values kept apart so they
+    can be compared within a tolerance."""
+    out = []
+    for r in rows:
+        items = sorted(r.items(), key=lambda kv: kv[0])
+        key = repr([(k, round(v, 9) if isinstance(v, float) else v)
+                    for k, v in items])
+        out.append((key, items))
+    return sorted(out, key=lambda e: e[0])
+
+
+def _assert_rows_agree(got, ref):
+    cg, cr = _canon(got), _canon(ref)
+    assert len(cg) == len(cr), (len(cg), len(cr))
+    for (_, ig), (_, ir) in zip(cg, cr):
+        assert [k for k, _ in ig] == [k for k, _ in ir]
+        for (k, g), (_, r) in zip(ig, ir):
+            if isinstance(r, float) and isinstance(g, float):
+                assert (math.isnan(g) and math.isnan(r)) or g == r or \
+                    abs(g - r) <= 1e-12 * max(abs(g), abs(r)), (k, g, r)
+            else:
+                assert repr(g) == repr(r), (k, g, r)
+
+
+STAT_KEYS = ("rows_fallback", "fallback_reasons", "rows_vectorized",
+             "rows_index_vectorized")
+
+
+def _agree(port_ds, ref_ds, port_plan, ref_plan, ref):
+    rows_p, ex_p = PORT.run_query(port_plan, port_ds, vectorize=True)
+    rows_r, ex_r = ref.run_query(ref_plan, ref_ds, vectorize=True)
+    _assert_rows_agree(rows_p, rows_r)
+    for key in STAT_KEYS:
+        assert getattr(ex_p.stats, key) == getattr(ex_r.stats, key), key
+    return ex_p
+
+
+# ---------------------------------------------------------------------------
+# TinySocial: the table-3 plan classes
+# ---------------------------------------------------------------------------
+
+LO, HI = dt.datetime(2010, 1, 1), dt.datetime(2010, 2, 1)
+MLO = dt.datetime(2014, 2, 1)
+
+
+def table3_plans(A):
+    """The table-3 plan classes (benchmarks/table3_queries.py) built with
+    one package's algebra."""
+    sel_sm = A.select(A.scan("MugshotMessages"),
+                      pred=lambda r: r["timestamp"] <= dt.datetime(2014, 1, 4),
+                      fields=["timestamp"],
+                      ranges={"timestamp": (dt.datetime(2014, 1, 1),
+                                            dt.datetime(2014, 1, 4))})
+    ts_range = {"timestamp": (MLO, dt.datetime(2015, 1, 1))}
+    return {
+        "index_range_scan": A.select(
+            A.scan("MugshotUsers"),
+            pred=lambda r: LO <= r["user-since"] <= HI,
+            fields=["user-since"], ranges={"user-since": (LO, HI)}),
+        "exact_range_aggregate": A.aggregate(
+            A.select(A.scan("MugshotMessages"),
+                     pred=lambda r: r["timestamp"] >= MLO,
+                     fields=["timestamp"], ranges=ts_range,
+                     ranges_exact=True, hints=["skip-index"]),
+            {"cnt": ("count", "*"), "avg_author": ("avg", "author-id")}),
+        "skip_index_select": A.select(
+            A.scan("MugshotMessages"),
+            pred=lambda r: MLO <= r["timestamp"] <= dt.datetime(2014, 2, 20),
+            fields=["timestamp"],
+            ranges={"timestamp": (MLO, dt.datetime(2014, 2, 20))},
+            hints=["skip-index"]),
+        "index_chain_aggregate": A.aggregate(
+            A.select(A.scan("MugshotMessages"),
+                     pred=lambda r: r["timestamp"] >= MLO,
+                     fields=["timestamp"], ranges=ts_range),
+            {"cnt": ("count", "*"), "avg_author": ("avg", "author-id")}),
+        "grouped_topk": A.limit(A.order_by(
+            A.group_by(A.scan("MugshotMessages"), ["author-id"],
+                       {"cnt": ("count", "*")}), ["cnt"], desc=True), 10),
+        "select_join": A.join(sel_sm, A.scan("MugshotUsers"),
+                              ["author-id"], ["id"]),
+    }
+
+
+# classes whose per-operator plan aggregates the gathered index survivors:
+# those columns are new per query and ship until the fused chain (rung 3)
+GATHERED = {"index_chain_aggregate"}
+
+
+@pytest.fixture(scope="module")
+def tinysocial(REF):
+    _, port = PORT.ts.build_dataverse(300, 3000, num_partitions=4,
+                                      flush_threshold=128)
+    _, ref = REF.ts.build_dataverse(300, 3000, num_partitions=4,
+                                    flush_threshold=128)
+    return port, ref
+
+
+@pytest.mark.parametrize("name", list(table3_plans(P_A)))
+def test_table3_plan_agrees_with_reference(REF, tinysocial, name):
+    port, ref = tinysocial
+    pp, rp = table3_plans(PORT.A)[name], table3_plans(REF.A)[name]
+    ex = _agree(port, ref, pp, rp, REF)
+    assert ex.stats.rows_vectorized > 0
+    # warm repeat: nothing re-ships and nothing is seen for the first time
+    k0 = P_obs.snapshot()
+    _, ex2 = PORT.run_query(pp, port, vectorize=True)
+    assert ex2.stats.kernel_retraces == 0
+    if name in GATHERED:
+        k1 = P_obs.snapshot()
+        agg_h2d = (k1.get("kernel.fused_filter_aggregate.h2d_bytes", 0)
+                   - k0.get("kernel.fused_filter_aggregate.h2d_bytes", 0))
+        assert ex2.stats.h2d_bytes == agg_h2d
+    else:
+        assert ex2.stats.h2d_bytes == 0
+
+
+def test_index_paths_launch_every_kernel_class(tinysocial):
+    """The slice's plans reach K1, K2 and K4 (K3 runs in every merge)."""
+    port, _ = tinysocial
+    before = {k: P_obs.snapshot().get(f"kernel.{k}.dispatches", 0)
+              for k in ("range_mask", "fused_filter_aggregate",
+                        "t_occurrence_mask", "sorted_intersect_mask")}
+    for plan in table3_plans(PORT.A).values():
+        PORT.run_query(plan, port, vectorize=True)
+    _, fresh = PORT.ts.build_dataverse(40, 600, num_partitions=2,
+                                       flush_threshold=16)
+    after = P_obs.snapshot()
+    for k, v in before.items():
+        assert after.get(f"kernel.{k}.dispatches", 0) > v, k
+
+
+# ---------------------------------------------------------------------------
+# lifecycle schedules, replayed in both packages
+# ---------------------------------------------------------------------------
+
+VOCAB = ["tpu", "jax", "lsm", "tonight", "tonite", "coffee", "fuzzy",
+         "mesh", "verona"]
+
+
+def _record_type(adm):
+    return adm.RecordType("DiffT", (
+        adm.Field("id", adm.INT64),
+        adm.Field("g", adm.INT64),
+        adm.Field("a", adm.INT64, optional=True),
+        adm.Field("b", adm.INT64, optional=True),
+        adm.Field("txt", adm.STRING, optional=True),
+        adm.Field("loc", adm.POINT, optional=True),
+    ), open=True)
+
+
+def _plan(pkg, rng, kind):
+    A = pkg.A
+    lo = rng.randrange(-60, 50)
+    hi = lo + rng.randrange(0, 60)
+    lo_ = None if rng.random() < 0.15 else lo
+    hints = ["skip-index"] if rng.random() < 0.25 else []
+    sel = A.select(A.scan("D"),
+                   pred=lambda r: "a" in r and (lo_ is None or r["a"] >= lo_)
+                   and r["a"] <= hi,
+                   fields=["a"], ranges={"a": (lo_, hi)},
+                   ranges_exact=rng.random() < 0.5, hints=hints)
+    if kind == "btree":
+        return sel
+    if kind == "agg":
+        return A.aggregate(sel, {"c": ("count", "*"), "s": ("sum", "a"),
+                                 "mn": ("min", "b"), "av": ("avg", "b")})
+    if kind == "group":
+        return A.group_by(sel, ["g"], {"c": ("count", "*"),
+                                       "mx": ("max", "a")})
+    if kind == "topk":
+        return A.limit(A.order_by(sel, ["id"], desc=rng.random() < 0.5),
+                       rng.randrange(1, 9))
+    if kind == "spatial":
+        center = (rng.uniform(0.0, 1.0), rng.uniform(0.0, 1.0))
+        radius = rng.uniform(0.05, 0.4)
+        dist = pkg.fn.spatial_distance
+        return A.select(A.scan("D"),
+                        pred=lambda r: "loc" in r
+                        and dist(r["loc"], center) <= radius,
+                        fields=["loc"], spatial=("loc", center, radius))
+    token = rng.choice(VOCAB)
+    tokens = pkg.fn.word_tokens
+    return A.select(A.scan("D"),
+                    pred=lambda r: "txt" in r and token in tokens(r["txt"]),
+                    fields=["txt"], keyword=("txt", token, 0))
+
+
+def _replay(pkg, seed):
+    """One seeded lifecycle schedule; returns the dataset and the plans
+    queried at each checkpoint (the dataset's state is identical in both
+    packages because the rng draws are)."""
+    rng = random.Random(seed)
+    parts = rng.choice([2, 3, 4])
+    threshold = rng.choice([6, 13, 31])
+    ds = pkg.dsm.PartitionedDataset(
+        "D", _record_type(pkg.adm), "id", num_partitions=parts,
+        flush_threshold=threshold,
+        merge_policy=pkg.lsm.TieredMergePolicy(k=rng.choice([2, 3])))
+    ds.create_index("a")
+    ds.create_index("txt", kind="keyword")
+    ds.create_index("loc", kind="rtree")
+
+    def mk_row():
+        r = {"id": rng.randrange(120), "g": rng.randrange(4)}
+        if rng.random() < 0.8:
+            r["a"] = rng.randrange(-50, 50)
+        if rng.random() < 0.5:
+            r["b"] = rng.randrange(0, 30)
+        if rng.random() < 0.6:
+            r["txt"] = " ".join(rng.choice(VOCAB) for _ in range(2))
+        if rng.random() < 0.5:
+            r["loc"] = (rng.uniform(0.0, 1.0), rng.uniform(0.0, 1.0))
+        if rng.random() < 0.4:
+            r["x"] = rng.choice([rng.randrange(100), rng.uniform(0.0, 9.0),
+                                 rng.choice(VOCAB)])
+        return r
+
+    checkpoints = []
+    for _ in range(rng.randrange(5, 10)):
+        op = rng.choice(["insert", "insert", "batch", "delete", "flush",
+                         "merge", "recover", "query", "query"])
+        if op == "insert":
+            for _ in range(rng.randrange(1, threshold + 3)):
+                ds.insert(mk_row())
+        elif op == "batch":
+            ds.insert_batch(
+                [mk_row() for _ in range(rng.randrange(1, 2 * threshold))])
+        elif op == "delete":
+            for _ in range(rng.randrange(1, 6)):
+                ds.delete(rng.randrange(120))
+        elif op == "flush":
+            for part in ds.partitions:
+                part.primary.flush()
+        elif op == "merge":
+            part = ds.partitions[rng.randrange(parts)]
+            valid = [c for c in part.primary.components if c.valid]
+            if len(valid) >= 2:
+                k = rng.randrange(2, len(valid) + 1)
+                start = rng.randrange(0, len(valid) - k + 1)
+                part.primary.merge(valid[start:start + k])
+        elif op == "recover":
+            ds = ds.crash_and_recover()
+        else:
+            kind = rng.choice(["btree", "agg", "group", "topk", "spatial",
+                               "keyword"])
+            checkpoints.append(pkg.run_query(_plan(pkg, rng, kind),
+                                             {"D": ds}, vectorize=True))
+    for kind in ("agg", "spatial", "keyword"):
+        checkpoints.append(pkg.run_query(_plan(pkg, rng, kind), {"D": ds},
+                                         vectorize=True))
+    return ds, checkpoints
+
+
+@pytest.mark.parametrize("seed", range(20))
+def test_lifecycle_schedule_agrees_with_reference(REF, seed):
+    port_ds, port_res = _replay(PORT, 1000 + seed)
+    ref_ds, ref_res = _replay(REF, 1000 + seed)
+    assert len(port_res) == len(ref_res)
+    for (rows_p, ex_p), (rows_r, ex_r) in zip(port_res, ref_res):
+        _assert_rows_agree(rows_p, rows_r)
+        for key in STAT_KEYS:
+            assert getattr(ex_p.stats, key) == getattr(ex_r.stats, key), key
+    _assert_rows_agree(port_ds.scan(), ref_ds.scan())
+
+
+# ---------------------------------------------------------------------------
+# carrying a reference dataset's state into the port
+# ---------------------------------------------------------------------------
+
+def test_dataset_from_reference(REF, tinysocial):
+    _, ref = tinysocial
+    for name in ("MugshotUsers", "MugshotMessages"):
+        carried = dataset_from_reference(ref[name])
+        assert carried.num_partitions == ref[name].num_partitions
+        assert carried.index_fields == ref[name].index_fields
+        _assert_rows_agree(carried.scan(), ref[name].scan())
+    port = {n: dataset_from_reference(d) for n, d in ref.items()}
+    for name in ("index_range_scan", "index_chain_aggregate"):
+        rows_p, _ = PORT.run_query(table3_plans(PORT.A)[name], port,
+                                   vectorize=True)
+        rows_r, _ = REF.run_query(table3_plans(REF.A)[name], ref,
+                                  vectorize=True)
+        _assert_rows_agree(rows_p, rows_r)
