@@ -1,17 +1,25 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch port (``src/repro_torch``).
 
-Drives the port's columnar query path on one CUDA device and checks it:
+Drives the port's columnar and fuzzy query paths on one CUDA device and
+checks them:
 
   1. device   the card's name and power limit (nvidia-smi)
-  2. build    the four CUDA kernels from src/repro_torch/kernels/csrc
-  3. kernels  K1-K4 against their plain PyTorch versions at main-path
-              shapes, timed with CUDA events beside their bound and, where
-              one PyTorch call computes the same function, that call
+  2. build    the seven CUDA kernels from src/repro_torch/kernels/csrc
+  3. kernels  K1-K6 and A7 against their plain PyTorch versions at
+              main-path shapes, timed beside their bound and, where one
+              PyTorch call computes the same function, that call
   4. main     TinySocial ingested through ``insert_batch`` (tiered merges
               run K3), then the table-3 query classes through
               ``run_query(..., vectorize=True)``, cold and warm, checked
               against the row engine and numpy over the generated records
+  4b. fuzzy   on the same users: an ngram(3) index on ``name`` and a
+              keyword index on ``alias`` built by backfill, three fuzzy
+              selects (K4 at T > 1, K5, K6) and a fuzzy keyword probe
+              (K5, K4) cold and warm, checked against the row engine's
+              full scan; ``FuzzyJoin.run`` on table 3's message tags and
+              on clustered records (A7, and K6 past a 2**15 vocabulary),
+              checked against the per-pair verify loop
   5. a ``kernels`` JSON line, the card line, and the ``ok`` JSON line last
 
 Usage:  python3 chip_smoke.py [--messages 2000000] [--users 200000]
@@ -96,6 +104,11 @@ def plans(A):
 GATHERED = {"index_chain_aggregate"}
 WARM_REPEATS = 3
 K2_H2D = "kernel.fused_filter_aggregate.h2d_bytes"
+# the kernels each path must launch
+COLUMNAR_PATH = ("range_mask", "fused_filter_aggregate",
+                 "sorted_intersect_mask", "t_occurrence_mask")
+FUZZY_PATH = ("t_occurrence_mask", "edit_distances", "set_intersect_counts",
+              "bitset_intersect_counts")
 
 
 def canon(rows):
@@ -145,7 +158,9 @@ def build_tinysocial(args, port):
                              "datetime64[us]"),
            "mid": np.array([m["message-id"] for m in msgs], np.int64),
            "author": np.array([m["author-id"] for m in msgs], np.int64),
-           "ts": np.array([m["timestamp"] for m in msgs], "datetime64[us]")}
+           "ts": np.array([m["timestamp"] for m in msgs], "datetime64[us]"),
+           # table 3's fuzzy join input: 1,500 messages' tag sets
+           "tags": [(m["message-id"], set(m["tags"])) for m in msgs[:1500]]}
     dv = adm.Dataverse("TinySocial")
     ut = dv.create_type(ts.user_type())
     mt = dv.create_type(ts.message_type())
@@ -172,6 +187,156 @@ def build_tinysocial(args, port):
           f"{t_gen:.3f} s; ingested in {t_ingest:.3f} s "
           f"({n_rec / t_ingest:.0f} records/s, host clock)")
     return ds, rec
+
+
+# ---------------------------------------------------------------------------
+# the fuzzy path (benchmarks/table3_queries.py:128-158, fuzzy_bench.py)
+# ---------------------------------------------------------------------------
+
+FUZZY_SELECTS = {
+    "fuzzy_ed_select": ("name", "ed", "User Number 123", 1),
+    "fuzzy_ed_wide": ("name", "ed", "User Number 123", 3),
+    "fuzzy_jaccard_select": ("name", "jaccard", "User Number 12345", 0.8),
+}
+KEYWORD_PROBE = ("alias", "user12345", 1)
+# the verify operands (candidate strings, gram sets) are new per query and
+# ship, as in the reference; everything else stays resident
+VERIFY_H2D = ("kernel.edit_distances.h2d_bytes",
+              "kernel.set_intersect_counts.h2d_bytes")
+K4_H2D = "kernel.t_occurrence_mask.h2d_bytes"
+
+
+def fuzzy_plans(A, fn, fuzzy_predicate):
+    """The fuzzy selects (pred is the spec's own predicate, so the plans
+    declare it exact, as fuzzy_bench.py does) and the keyword probe."""
+    out = {name: A.select(A.scan("MugshotUsers"),
+                          pred=fuzzy_predicate(spec), fields=["name"],
+                          fuzzy=spec, ranges_exact=True)
+           for name, spec in FUZZY_SELECTS.items()}
+    fld, tok, ed = KEYWORD_PROBE
+    out["fuzzy_keyword_probe"] = A.select(
+        A.scan("MugshotUsers"),
+        pred=lambda r: fld in r and any(fn.edit_distance_check(t, tok, ed)
+                                        for t in fn.word_tokens(r[fld])),
+        fields=[fld], keyword=KEYWORD_PROBE)
+    return out
+
+
+def clustered_records(n_records, vocab_size, noise, seed=7):
+    """fuzzy_bench.py's near-duplicate clusters (its ``_join_rows`` at
+    ``vocab_size`` 800, ``noise`` 3): 100 records per cluster, each its
+    cluster's 60 base tokens less 5 plus ``noise`` random tokens."""
+    import random
+    rng = random.Random(seed)
+    vocab = [f"tok{i}" for i in range(vocab_size)]
+    recs = []
+    for _c in range(max(n_records // 100, 1)):
+        base = rng.sample(vocab, 60)
+        for _ in range(100):
+            s = set(base)
+            for t in rng.sample(base, 5):
+                s.discard(t)
+            s.update(rng.sample(vocab, noise))
+            recs.append((len(recs), s))
+    return recs
+
+
+def fuzzy_phase(ds, rec):
+    """Phase 4b: the fuzzy query path on the ingested users."""
+    import torch
+    from repro_torch import obs
+    from repro_torch.core import algebra, functions
+    from repro_torch.core.rewriter import RewriteConfig
+    from repro_torch.data.dedup import FuzzyJoin
+    from repro_torch.fuzzy import fuzzy_predicate
+    from repro_torch.kernels import columnar_ops, selfcheck
+    from repro_torch.storage import query
+    users = ds["MugshotUsers"]
+    # the users fit in the memtables (50,000 a partition, under the flush
+    # threshold); flush them, as a deployment holding them for long would
+    # have, so the index creation below takes the backfill path
+    t = time.perf_counter()
+    for part in users.partitions:
+        part.primary.flush()
+    print(f"fuzzy: MugshotUsers memtables flushed in "
+          f"{time.perf_counter() - t} s (host clock)")
+    for fld, kind in (("name", "ngram"), ("alias", "keyword")):
+        t = time.perf_counter()
+        users.create_index(fld, kind=kind)
+        print(f"fuzzy: {kind} index on MugshotUsers.{fld} backfilled in "
+              f"{time.perf_counter() - t} s (host clock)")
+    qs = fuzzy_plans(algebra, functions, fuzzy_predicate)
+    for name, plan in qs.items():
+        times = []
+        for rep in range(1 + WARM_REPEATS):
+            snap0 = obs.snapshot()
+            t = time.perf_counter()
+            rows, ex = query.run_query(plan, ds, vectorize=True)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            snap1 = obs.snapshot()
+            st = ex.stats
+            if rep == 0:
+                cold = st
+                continue
+            check(st.kernel_retraces == 0, f"{name}: warm retraces")
+            check(st.rows_fallback == 0, f"{name}: warm row fallback "
+                                         f"{st.fallback_reasons}")
+            if name in FUZZY_SELECTS:
+                check(st.rows_fuzzy_vectorized > 0,
+                      f"{name}: the fuzzy chain did not run")
+            k4 = snap1.get(K4_H2D, 0) - snap0.get(K4_H2D, 0)
+            check(k4 == 0, f"{name}: warm K4 positions shipped {k4} B")
+            verify = sum(snap1.get(k, 0) - snap0.get(k, 0)
+                         for k in VERIFY_H2D)
+            check(st.h2d_bytes == verify,
+                  f"{name}: warm h2d {st.h2d_bytes} beyond the verify "
+                  f"operands' {verify}")
+        check(cold.rows_fallback == 0, f"{name}: cold row fallback")
+        t = time.perf_counter()
+        srows, _ = query.run_query(
+            plan, ds, config=RewriteConfig(use_indexes=False))
+        t_scan = time.perf_counter() - t
+        check(canon(srows) == canon(rows), f"{name}: row engine full scan")
+        warm = sorted(times[1:])
+        med = warm[len(warm) // 2]
+        busy = selfcheck.device_ms(
+            lambda: query.run_query(plan, ds, vectorize=True)) / 1e3
+        if busy == 0 and st.kernel_dispatches:
+            idle = "busy not measured: the profiler recorded no kernel"
+        else:
+            idle = f"busy_s {busy}, idle share {1 - busy / med}"
+        print(f"query {name}: rows {len(rows)} cold_s {times[0]} "
+              f"warm_s_median {med} (host clock to synchronize; "
+              f"{WARM_REPEATS} warm runs) warm device {idle} (profiler) "
+              f"cold_h2d {cold.h2d_bytes} warm_h2d {st.h2d_bytes} "
+              f"(verify operands; K4 0) warm_dispatches "
+              f"{st.kernel_dispatches} rows_fuzzy_vectorized "
+              f"{st.rows_fuzzy_vectorized} rows_index_vectorized "
+              f"{st.rows_index_vectorized}; checked against the row "
+              f"engine's full scan ({t_scan} s)")
+    joins = {"table3_tags": (rec["tags"], 0.6),
+             "clustered_bitset": (clustered_records(3500, 800, 3), 0.5),
+             "clustered_wide_vocab": (clustered_records(3500, 1 << 20, 12),
+                                      0.5)}
+    for name, (recs, thr) in joins.items():
+        fj = FuzzyJoin(threshold=thr)
+        t = time.perf_counter()
+        pairs, stats = fj.run(recs)
+        torch.cuda.synchronize()
+        t_batch = time.perf_counter() - t
+        fj.batch_verify = False
+        t = time.perf_counter()
+        loop_pairs, _ = fj.run(recs)
+        t_loop = time.perf_counter() - t
+        check(pairs == loop_pairs, f"{name}: batched verify disagrees with "
+                                   f"the per-pair loop")
+        vocab = len(set().union(*(s for _, s in recs)))
+        print(f"fuzzyjoin {name}: {stats} vocabulary {vocab} threshold "
+              f"{thr}; run {t_batch} s batched, {t_loop} s with the "
+              f"per-pair loop (host clock)")
+    seen = sorted(k for k in columnar_ops._SEEN if k[0] in FUZZY_PATH)
+    print(f"fuzzy: kernel shapes seen {seen}")
 
 
 def main() -> int:
@@ -282,8 +447,19 @@ def main() -> int:
               f" checked against the row engine ({t_row} s) and numpy")
     counts = selfcheck.launch_counts()
     print(f"main: launches {json.dumps(counts)}")
-    for k, v in counts.items():
-        check(v > 0, f"kernel {k} never launched on the main path")
+    for k in COLUMNAR_PATH:
+        check(counts[k] > 0, f"kernel {k} never launched on the main path")
+
+    # -- 4b. fuzzy path ----------------------------------------------------
+    selfcheck.reset_launch_counts()
+    t0 = time.perf_counter()
+    fuzzy_phase(ds, rec)
+    fuzzy_counts = selfcheck.launch_counts()
+    print(f"fuzzy: launches {json.dumps(fuzzy_counts)}; phase took "
+          f"{time.perf_counter() - t0} s (host clock)")
+    for k in FUZZY_PATH:
+        check(fuzzy_counts[k] > 0,
+              f"kernel {k} never launched on the fuzzy path")
     snap = obs.snapshot()
     print(f"main: buffer_pool.resident_bytes "
           f"{snap.get('buffer_pool.resident_bytes')} entries "
@@ -295,7 +471,10 @@ def main() -> int:
     for name, meta in selfcheck.KERNELS.items():
         r = results[name][0]
         entry = {"name": name, "route": "cuda", "source": meta["source"],
-                 "replaces": meta["replaces"], "launches": counts[name],
+                 "replaces": meta["replaces"],
+                 "launches": counts[name] + fuzzy_counts[name],
+                 "launches_columnar": counts[name],
+                 "launches_fuzzy": fuzzy_counts[name],
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                  "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                  "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -558,10 +558,15 @@ def _compile_index_path(op: PhysicalOp, ex: Any,
                     if validate else True)
     fuzzy_spec = search.attrs.get("spec") if is_fuzzy else None
     if is_fuzzy:
-        # the ngram T-occurrence chain and its verify kernels (K5/K6)
-        # belong to the fuzzy slice of the port
-        from ..kernels.fuzzy_ops import fuzzy_pending
-        fuzzy_pending("fuzzy index chains")
+        # verification uses the *spec's* gram length (the predicate's
+        # semantics); the index's gram_length only shapes the candidate
+        # postings.  Like every other access path, the full pred
+        # re-checks the gathered survivors unless the plan declared
+        # ``ranges_exact`` (pred may carry conjuncts beyond the spec).
+        from ..fuzzy.ngram import spec_gram_length
+        gram_k = spec_gram_length(fuzzy_spec)
+    else:
+        gram_k = 3
     # fields names exactly what pred reads, so projected gathers stay safe
     # even when a range column degrades to a row-at-a-time re-check
     fz_cols = {fuzzy_spec[0]} if fuzzy_spec is not None else set()
@@ -606,6 +611,7 @@ def _compile_index_path(op: PhysicalOp, ex: Any,
             residual=residual, fields=fields, aggs=aggs)
 
     def run_index_path():
+        from ..fuzzy.verify import verify_mask
         stat = ex.stats.fuzzy_vectorized if is_fuzzy \
             else ex.stats.index_vectorized
         out: List[ColumnBatch] = []
@@ -661,6 +667,10 @@ def _compile_index_path(op: PhysicalOp, ex: Any,
                 continue
             n_found += int(mask.sum())           # live candidates gathered
             batch = ds.scan_partition_batch(i, cols)
+            if fuzzy_spec is not None and validate is not None:
+                # VERIFY: batched similarity kernels over the candidate
+                # positions' dictionary-coded column (per distinct value)
+                mask = verify_mask(batch, mask, fuzzy_spec, gram_k)
             if validate is not None and (validate_ranges
                                          or (residual and pred is not None)):
                 got = O.index_post_validate(batch, mask, validate_ranges,

@@ -450,23 +450,28 @@ class FieldPostings:
         counts = self.offsets[lo[found] + 1] - starts
         return segment_gather(self.positions, starts, counts)
 
-    def token_positions(self, token: str, fuzzy_ed: int = 0) -> np.ndarray:
-        """Keyword probe: the token's posting segment; with ``fuzzy_ed``
-        the whole (distinct) token dictionary runs through one batched
-        banded-DP call and every matching segment is gathered (positions
-        deduplicated — a row may match several tokens)."""
+    def token_segments(self, token: str, fuzzy_ed: int = 0
+                       ) -> List[Tuple[int, int]]:
+        """Keyword probe: ``(start, stop)`` slices of the postings' own
+        (immutable, device-pool resident) positions array, one per
+        matching token, so the probe ships no positions to the device.
+        With ``fuzzy_ed`` the whole (distinct) token dictionary runs
+        through one batched banded-DP call (K5); a row under several
+        matching tokens sits in several slices, which the T = 1 count
+        (K4) collapses."""
         if self.keys.shape[0] == 0:
-            return _EMPTY_I64
+            return []
         if fuzzy_ed == 0:
-            return self.lookup_positions(_obj_array([token]))
-        from ..kernels.fuzzy_ops import edit_distances  # raises until K5
-        toks = self.keys.tolist()
-        ok = edit_distances(toks, token, fuzzy_ed) <= fuzzy_ed
-        if not ok.any():
-            return _EMPTY_I64
-        starts = self.offsets[:-1][ok]
-        counts = self.offsets[1:][ok] - starts
-        return np.unique(segment_gather(self.positions, starts, counts))
+            probe = _obj_array([token])
+            lo = int(np.searchsorted(self.keys, probe, side="left")[0])
+            hi = int(np.searchsorted(self.keys, probe, side="right")[0])
+            sel = range(lo, hi)
+        else:
+            from ..kernels.fuzzy_ops import edit_distances
+            sel = np.flatnonzero(edit_distances(self.keys.tolist(), token,
+                                                fuzzy_ed) <= fuzzy_ed)
+        return [(int(self.offsets[g]), int(self.offsets[g + 1]))
+                for g in sel]
 
 
 def _missing(v: Any) -> bool:

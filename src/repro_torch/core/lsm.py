@@ -299,8 +299,19 @@ class Component:
         p = self.gram_postings.get(fld)
         if p is not None and p.k == k:
             return p
-        from ..kernels.fuzzy_ops import fuzzy_pending
-        fuzzy_pending("ngram postings")
+        from ..fuzzy.ngram import GramPostings
+        t0 = time.perf_counter()
+        with _obs.span("lsm.postings_build", field=fld):
+            if self.batch is not None:
+                p = GramPostings.from_batch(self.batch, fld, k, self.size)
+            else:
+                vals = [r.get(fld) if isinstance(r, dict) else None
+                        for r in (self._rows
+                                  if self._rows is not None else ())]
+                p = GramPostings.from_values(vals, k)
+        _POSTINGS_S.observe(time.perf_counter() - t0)
+        self.gram_postings[fld] = p
+        return p
 
     @property
     def size(self) -> int:

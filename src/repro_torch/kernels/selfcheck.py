@@ -1,12 +1,12 @@
-"""On-card checks and timings of the four kernels against their plain
+"""On-card checks and timings of the port's kernels against their plain
 versions, at the shapes the main path gives them.
 
 ``chip_smoke.py`` and ``tests/test_torch_kernels_gpu.py`` use this module;
 it needs a CUDA device.  Every case builds its inputs from a numpy seed on
 the card, runs the kernel and its plain PyTorch version on the same
-tensors, and compares them: masks and counts exactly, float64 sums within
-``SUM_RTOL`` relative (the kernel folds partial sums in a fixed tree
-order, the plain version in torch's order).
+tensors, and compares them: masks, counts and distances exactly,
+float64 sums within ``SUM_RTOL`` relative (the kernel folds partial sums
+in a fixed tree order, the plain version in torch's order).
 
 Two times are taken per call, with the L2 cache flushed before each call
 (the main path meets its operands cold): ``ms``, the device time of the
@@ -22,7 +22,7 @@ whichever is larger.
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,11 +32,12 @@ from . import fuzzy_ops as FO
 from .columnar_ops import _prep_bounds
 
 __all__ = ["KERNELS", "SUM_RTOL", "launch_counts", "reset_launch_counts",
-           "k1_case", "k2_case", "k3_case", "k4_case", "main_path_cases",
-           "run_case", "device_ms"]
+           "k1_case", "k2_case", "k3_case", "k4_case", "k5_case", "k6_case",
+           "a7_case", "main_path_cases", "run_case", "device_ms"]
 
 # H100 SXM (NVIDIA data sheet): HBM3 bandwidth and the FP32 rate outside
-# the tensor cores, the rate used for the kernels' scalar compares/adds
+# the tensor cores, the rate used for the kernels' scalar integer
+# compares, adds and mins
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
 SUM_RTOL = 1e-9
@@ -58,6 +59,18 @@ KERNELS = {
         "source": "src/repro_torch/kernels/csrc/t_occurrence.cu",
         "replaces": "src/repro/kernels/fuzzy_ops.py:112",
         "wrapper": FO.tocc_cuda},
+    "edit_distances": {
+        "source": "src/repro_torch/kernels/csrc/edit_distance.cu",
+        "replaces": "src/repro/kernels/fuzzy_ops.py:282",
+        "wrapper": FO.ed_cuda},
+    "set_intersect_counts": {
+        "source": "src/repro_torch/kernels/csrc/set_intersect.cu",
+        "replaces": "src/repro/kernels/fuzzy_ops.py:392",
+        "wrapper": FO.inter_cuda},
+    "bitset_intersect_counts": {
+        "source": "src/repro_torch/kernels/csrc/bitset_intersect.cu",
+        "replaces": "src/repro/kernels/fuzzy_ops.py:501",
+        "wrapper": FO.popcount_cuda},
 }
 
 
@@ -208,18 +221,129 @@ def k4_case(n: int, m: int, threshold: int, seed: int, dev: torch.device,
             "ops": m}
 
 
+# per DP cell: min(up, left) + 1, a compare-add on the diagonal, two mins
+ED_OPS_PER_CELL = 6
+
+
+def k5_case(strings: List[str], query: str, d: int, dev: torch.device
+            ) -> Dict[str, Any]:
+    """K5 over ``strings`` (padded as ``edit_distances`` pads them)."""
+    bp = FO._pow2_len(len(strings))
+    mat, lens = FO._char_matrix(strings, bp)
+    qc, _ = FO._code_points([query])
+    m = int(qc.shape[0])
+    q = np.zeros(max(m, 1), dtype=np.int32)
+    q[:m] = qc
+    cap = min(d + 1, mat.shape[1] + m + 1)
+    cand, lt = torch.from_numpy(mat).to(dev), torch.from_numpy(lens).to(dev)
+    qt = torch.from_numpy(q).to(dev)
+    cells = int(np.minimum(lens, mat.shape[1]).sum()) * m
+    return {"kernel": "edit_distances",
+            "label": f"B={bp} L={mat.shape[1]} m={m} d={d}",
+            "run": lambda: FO.ed_cuda(cand, lt, qt, m, cap),
+            "plain": lambda: FO.ed_plain(cand, lt, qt, m, cap),
+            "library": None,
+            "compare": _mask_compare,
+            "bytes": 4 * int(lens.sum()) + 8 * bp + 4 * m + 8 * bp,
+            "ops": ED_OPS_PER_CELL * cells}
+
+
+def _random_strings(rng: np.random.Generator, B: int, L: int,
+                    alphabet: str = "User Nmb0123456789é\u4e2d") -> List[str]:
+    lens = rng.integers(0, L + 1, B)
+    return ["".join(rng.choice(list(alphabet), int(n))) for n in lens]
+
+
+def k6_case(P: int, s1: int, s2: int, vocab: int, seed: int,
+            dev: torch.device) -> Dict[str, Any]:
+    """``P`` pairs of sorted distinct code sets drawn from ``vocab``
+    codes (int64; above 2**24 when ``vocab`` is), a rows masked by their
+    lengths, b rows padded with the int64 sentinel."""
+    rng = np.random.default_rng(seed)
+    S = s1 + s2
+    # one sorted distinct code run per pair; a and b keep random subsets
+    # of it (so they overlap), packed to the left in order
+    step = max(2, vocab // S)
+    run = np.cumsum(rng.integers(1, step, (P, S)), axis=1) \
+        + rng.integers(0, vocab, (P, 1))
+
+    def subset(width: int, fill: int) -> Tuple[np.ndarray, np.ndarray]:
+        keep = rng.random((P, S)) < rng.random((P, 1))
+        order = np.argsort(~keep, axis=1, kind="stable")
+        mat = np.take_along_axis(run, order, axis=1)[:, :width].copy()
+        lens = np.minimum(keep.sum(1), width).astype(np.int64)
+        mat[np.arange(width)[None, :] >= lens[:, None]] = fill
+        return mat, lens
+    a, alens = subset(s1, 0)
+    b, _ = subset(s2, FO._SENTINEL)
+    at, bt = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+    lt = torch.from_numpy(alens).to(dev)
+    live = int(alens.sum())
+
+    def library():
+        pos = torch.searchsorted(bt, at)
+        hit = bt.gather(1, pos.clamp(max=s2 - 1)) == at
+        return (hit & (torch.arange(s1, device=dev)[None, :]
+                       < lt[:, None])).sum(1)
+    return {"kernel": "set_intersect_counts",
+            "label": f"P={P} S1={s1} S2={s2} vocab={vocab}",
+            "run": lambda: FO.inter_cuda(at, lt, bt),
+            "plain": lambda: FO.inter_plain(at, lt, bt),
+            "library": library,
+            "compare": _mask_compare,
+            "bytes": 8 * live + 8 * P * s2 + 8 * P + 8 * P,
+            "ops": live * max(1, math.ceil(math.log2(max(s2, 2))))}
+
+
+def a7_case(R: int, W: int, P: int, density: float, seed: int,
+            dev: torch.device) -> Dict[str, Any]:
+    """``P`` pairs over an [R, W] bitset matrix with ``density`` of its
+    bits set (uint32 words carried as int32)."""
+    rng = np.random.default_rng(seed)
+    words = np.zeros((R, W), dtype=np.uint32)
+    for bit in range(32):
+        on = rng.random((R, W)) < density
+        words |= on.astype(np.uint32) << np.uint32(bit)
+    bits = torch.from_numpy(words.view(np.int32)).to(dev)
+    ai = torch.from_numpy(rng.integers(0, R, P)).to(dev)
+    bi = torch.from_numpy(rng.integers(0, R, P)).to(dev)
+    return {"kernel": "bitset_intersect_counts",
+            "label": f"R={R} W={W} P={P}",
+            "run": lambda: FO.popcount_cuda(bits, ai, bi),
+            "plain": lambda: FO.popcount_plain(bits, ai, bi),
+            "library": None,
+            "compare": _mask_compare,
+            "bytes": 4 * R * W + 16 * P + 8 * P,
+            "ops": 3 * W * P}
+
+
 def main_path_cases(dev: torch.device, seed: int = 0) -> List[Dict]:
     """The kernels at the shapes the main path gives them: a TinySocial
     messages partition of 2**19 rows (2M messages over 4 partitions) with
     K = 2 predicates and M = 2 aggregates; a tiered merge of four 2**16
     flushes into a 2**18-key union; a quarter-range index probe of 2**17
-    positions over the partition, at T = 1 and T = 3."""
+    positions over the partition, at T = 1 and T = 3.  The fuzzy phase's
+    shapes: K4 counting 2**20 gram hits over a users partition (2**16
+    rows) at T = 13; K5 verifying one users partition's 50,000 distinct
+    names (2**16 padded, L = 32) against the 15-character table-3 query
+    at d = 3; K6 scoring 2**7 candidate names' gram sets (S1 = 32)
+    against a query's (S2 = 32), and a wide-vocabulary
+    FuzzyJoin's 2**17 record pairs of width 67; A7 the clustered
+    FuzzyJoin's 2**18 pairs over 4,096 records of W = 32 words."""
     n = 1 << 19
+    rng = np.random.default_rng(seed + 5)
+    names = [f"User Number {i}"
+             for i in rng.choice(200_000, 50_000, replace=False)]
     return [k1_case(n, ["ts", "id"], seed, dev),
             k2_case(n, ["ts", "id"], ["id", "f64"], seed + 1, dev),
             k3_case(1 << 18, 1 << 16, seed + 2, dev),
             k4_case(n, 1 << 17, 1, seed + 3, dev),
-            k4_case(n, 1 << 19, 3, seed + 4, dev)]
+            k4_case(n, 1 << 19, 3, seed + 4, dev),
+            k5_case(names, "User Number 123", 3, dev),
+            k4_case(1 << 16, 1 << 20, 13, seed + 9, dev, tiers=16),
+            k6_case(1 << 7, 32, 32, 1 << 20, seed + 6, dev),
+            k6_case(1 << 17, 67, 67, 1 << 16, seed + 7, dev),
+            a7_case(1 << 12, 32, 1 << 18, 60 / 800, seed + 8, dev)]
 
 
 # ---------------------------------------------------------------------------

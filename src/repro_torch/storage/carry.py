@@ -50,6 +50,7 @@ def dataset_from_reference(ref: Any) -> PartitionedDataset:
         columnar=ref.columnar)
     ds.spatial_cell_size = ref.spatial_cell_size
     for fld in ref.index_fields:
-        ds.create_index(fld, kind=ref.index_kinds.get(fld, "btree"))
+        ds.create_index(fld, kind=ref.index_kinds.get(fld, "btree"),
+                        gram_length=ref._ngram_specs.get(fld, 3))
     ds.insert_batch(ref.scan())
     return ds

@@ -227,11 +227,15 @@ class PartitionedDataset:
             raise adm.ValidationError(f"index on {fld} already exists")
         if kind not in ("ngram", "btree", "rtree", "keyword"):
             raise adm.ValidationError(kind)
-        if kind == "ngram":
-            from ..kernels.fuzzy_ops import fuzzy_pending
-            fuzzy_pending("ngram indexes")
         self.index_fields.append(fld)
         self.index_kinds[fld] = kind
+        if kind == "ngram":
+            self._ngram_specs[fld] = int(gram_length)
+            for part in self.partitions:        # backfill existing comps
+                for comp in part.primary.components:
+                    if comp.valid:
+                        comp.ensure_gram_postings(fld, int(gram_length))
+            return
         self._sec_kinds[fld] = kind
         spec = self._sec_spec(fld)
         for part in self.partitions:            # backfill existing comps
@@ -654,10 +658,11 @@ class PartitionedDataset:
         idx, _ = self._live_selection(i, view)
         if not len(idx):
             return np.zeros(0, dtype=bool)
+        from ..kernels.fuzzy_ops import Segment
         token = token.lower()
         sources, total = self._sec_sources(i, fld, view)
-        parts = [off + p.token_positions(token, fuzzy_ed)
-                 for off, p in sources]
+        parts = [Segment(p.positions, a, b, off) for off, p in sources
+                 for a, b in p.token_segments(token, fuzzy_ed)]
         return self._positions_mask(parts, total, idx)
 
     # sorted-PK candidate surfaces: the bitmap gathered through the live
@@ -719,21 +724,60 @@ class PartitionedDataset:
         built at flush/merge (``ensure_gram_postings`` is a no-op then);
         the mutable memtable tail is indexed here, cached per storage
         version."""
-        from ..kernels.fuzzy_ops import fuzzy_pending
-        fuzzy_pending("ngram probes")
+        from ..fuzzy.ngram import GramPostings
+        k = self._ngram_specs[fld]
+        sources: List[Tuple[int, Any]] = []
+        off = 0
+        mem = view.memtable
+        if mem:
+            # cache entries are keyed by storage version, so a per-field
+            # memtable postings cache in one can never be stale
+            cache = self._cache_entry(i, view)["ngram"]
+            p = cache.get(fld)
+            if p is None:
+                vals = [None if r is TOMBSTONE else r.get(fld)
+                        for r in mem.values()]
+                p = GramPostings.from_values(vals, k)
+                if self._cacheable(i, view):
+                    cache[fld] = p
+            sources.append((0, p))
+            off = len(mem)
+        for comp in view.components:           # newest first
+            if comp.size == 0:
+                continue
+            sources.append((off, comp.ensure_gram_postings(fld, k)))
+            off += comp.size
+        return sources, off
 
     def ngram_candidate_mask(self, i: int, fld: str, spec: Tuple,
                              _view: Optional[LSMView] = None
                              ) -> np.ndarray:
         """T-occurrence candidate bitmap over partition ``i``'s scan
         positions (aligned with ``scan_partition_batch`` /
-        ``partition_pk_array``): gram-hit posting segments from every
-        storage tier concatenate into one position array and a single
-        fused count kernel keeps positions with >= T hits.  T <= 0 means
-        the index cannot prune — every row with an indexable value is a
-        candidate."""
-        from ..kernels.fuzzy_ops import fuzzy_pending
-        fuzzy_pending("ngram probes")
+        ``partition_pk_array``): the gram-hit posting segments of every
+        storage tier go to one count kernel (K4), which keeps positions
+        with >= T hits.  T <= 0 means the index cannot prune — every row
+        with an indexable value is a candidate.  Each segment is a slice
+        of its tier's immutable positions array (:class:`Segment`), so a
+        warm probe over component postings ships no positions to the
+        device."""
+        from ..fuzzy.ngram import query_grams
+        from ..kernels.fuzzy_ops import t_occurrence_mask
+        if fld not in self._ngram_specs:
+            raise adm.ValidationError(f"no ngram index on {self.name}.{fld}")
+        view = _view if _view is not None else self._view(i)
+        idx, _ = self._live_selection(i, view)
+        if not len(idx):
+            return np.zeros(0, dtype=bool)
+        qh, threshold = query_grams(spec, self._ngram_specs[fld])
+        sources, total = self._ngram_sources(i, fld, view)
+        if threshold <= 0:
+            has = np.zeros(total, dtype=bool)
+            for off, p in sources:
+                has[off:off + p.n_rows] = p.has_value
+            return has[idx]
+        segs = [s for off, p in sources for s in p.hit_segments(qh, off)]
+        return t_occurrence_mask(segs, total, threshold)[idx]
 
     def ngram_search_partition(self, i: int, fld: str, spec: Tuple,
                                _view: Optional[LSMView] = None
@@ -743,8 +787,30 @@ class PartitionedDataset:
         row holding an indexable value.  The T_OCCURRENCE operator
         filters by threshold; counts here are host bincounts, the fused
         kernel belongs to the columnar path."""
-        from ..kernels.fuzzy_ops import fuzzy_pending
-        fuzzy_pending("ngram probes")
+        from ..fuzzy.ngram import query_grams
+        if fld not in self._ngram_specs:
+            raise adm.ValidationError(f"no ngram index on {self.name}.{fld}")
+        view = _view if _view is not None else self._view(i)
+        idx, keys = self._live_selection(i, view)
+        if not len(idx):
+            return []
+        qh, threshold = query_grams(spec, self._ngram_specs[fld])
+        sources, total = self._ngram_sources(i, fld, view)
+        counts = np.zeros(total, dtype=np.int64)
+        has = np.zeros(total, dtype=bool)
+        for off, p in sources:
+            has[off:off + p.n_rows] = p.has_value
+            hp = p.hit_positions(qh)
+            if len(hp):
+                counts[off:off + p.n_rows] += np.bincount(
+                    hp, minlength=p.n_rows)
+        live_counts = counts[idx]
+        live_has = has[idx]
+        emit = (live_counts > 0) | live_has if threshold <= 0 \
+            else live_counts > 0
+        return [(pk, int(c)) for pk, c, e in
+                zip(keys.tolist(), live_counts.tolist(), emit.tolist())
+                if e]
 
     def primary_lookup_partition(self, i: int, pks: Sequence[Any],
                                  _view: Optional[LSMView] = None

@@ -247,9 +247,8 @@ class Executor:
         elif k == "T_OCCURRENCE":
             # keep candidates with >= T gram hits (T <= 0: the ngram
             # search already emitted exactly the indexable rows)
-            from ..kernels.fuzzy_ops import fuzzy_pending
-            fuzzy_pending("T-occurrence filtering")
-            thr = 0
+            from ..fuzzy.ngram import query_grams
+            _, thr = query_grams(op.attrs["spec"], op.attrs["gram_length"])
             parts = [[{"__pk": r["__pk"]} for r in rows
                       if r["__hits"] >= thr]
                      for rows in self._input(op, 0)]

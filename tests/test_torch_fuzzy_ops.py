@@ -1,12 +1,15 @@
-"""K4 (``t_occurrence_mask``) and ``fnv1a_hash`` of the PyTorch port
-(``repro_torch.kernels.fuzzy_ops``) held against the reference module on
-the same numpy inputs: masks exactly at T = 1 and T > 1 (the reference's
-host paths and its x64 scatter-count core), hashes bit for bit.
+"""The fuzzy kernels of the PyTorch port (``repro_torch.kernels.
+fuzzy_ops``) held against the reference module on the same numpy inputs:
+K4 masks at T = 1 and T > 1, K5 saturated edit distances, K6 and A7
+intersection counts, all exactly, in every regime the reference has (its
+host shortcuts, its x64 jnp cores, its Pallas kernels in interpret mode);
+``fnv1a_hash`` and ``encode_bitsets`` bit for bit; Jaccard similarities
+bit-identical in float64.
 
-On the CPU the port's wrapper runs K4's plain version; the CUDA kernel is
-held against it in test_torch_kernels_gpu.py.  The reference is imported
-under a test-side ``jax.experimental.enable_x64`` shim that is removed
-again when this module's tests end.
+On the CPU the port's wrappers run the kernels' plain versions; the CUDA
+kernels are held against them in test_torch_kernels_gpu.py.  The
+reference is imported under a test-side ``jax.experimental.enable_x64``
+shim that is removed again when this module's tests end.
 """
 
 import contextlib
@@ -125,6 +128,178 @@ def test_fnv1a_bit_identical(RF, tokens):
     np.testing.assert_array_equal(got, ref)
 
 
-def test_fuzzy_kernels_refuse_until_ported():
-    with pytest.raises(NotImplementedError, match="fuzzy slice"):
-        PF.edit_distances(["tpu"], "tpv", 1)
+def test_fuzzy_kernels_refuse_until_ported(RF):
+    """The fuzzy kernels, once refused here, are ported: the smallest
+    call of each equals the reference's."""
+    np.testing.assert_array_equal(PF.edit_distances(["tpu"], "tpv", 1),
+                                  RF.edit_distances(["tpu"], "tpv", 1,
+                                                    force_pallas=False))
+    a, b = [np.array([1, 2])], [np.array([2, 3])]
+    np.testing.assert_array_equal(
+        PF.set_intersect_counts(a, b),
+        RF.set_intersect_counts(a, b, force_pallas=False))
+
+
+# ---------------------------------------------------------------------------
+# K5: saturated edit distance
+# ---------------------------------------------------------------------------
+
+ALPHABET = list("abcdé中 ")
+
+
+def _strings(rng, n, max_len):
+    return ["".join(rng.choice(ALPHABET, int(k)))
+            for k in rng.integers(0, max_len + 1, n)]
+
+
+ED_QUERIES = ["", "abc", "dé中", "abcdabcdabcd"]
+
+
+@pytest.mark.parametrize("B", [1, 7, 32])
+@pytest.mark.parametrize("query", ED_QUERIES)
+def test_edit_distances_match_reference_host_dp(RF, B, query):
+    """B <= 32: the reference's host DP.  Empty strings, an empty query,
+    d = 0, non-ASCII code points, candidates longer than the query."""
+    rng = np.random.default_rng(B)
+    strs = _strings(rng, B, 20)
+    strs[0] = ""
+    for d in (0, 1, 4):
+        got = PF.edit_distances(strs, query, d)
+        assert got.dtype == np.int64 and got.shape == (B,)
+        np.testing.assert_array_equal(
+            got, RF.edit_distances(strs, query, d, force_pallas=False))
+
+
+@pytest.mark.parametrize("d", [0, 2, 40])
+def test_edit_distances_match_reference_jnp_core(RF, d):
+    """B > 32: the reference's x64 jnp core (one compile per shape)."""
+    rng = np.random.default_rng(d + 100)
+    strs = _strings(rng, 70, 24) + ["", "abcd" * 9]
+    for query in ("", "abcdé中"):
+        np.testing.assert_array_equal(
+            PF.edit_distances(strs, query, d),
+            RF.edit_distances(strs, query, d, force_pallas=False))
+
+
+def test_edit_distances_match_reference_pallas_interpret(RF):
+    rng = np.random.default_rng(7)
+    strs = _strings(rng, 7, 9) + [""]
+    np.testing.assert_array_equal(
+        PF.edit_distances(strs, "bcé", 1),
+        RF.edit_distances(strs, "bcé", 1, force_pallas=True,
+                          interpret=True))
+
+
+def test_edit_distances_plain_equals_python_oracle():
+    """Long queries and long strings (past the kernel's shared-memory
+    row) against the scalar DP, saturated."""
+    from repro_torch.core.functions import edit_distance
+    rng = np.random.default_rng(3)
+    strs = _strings(rng, 40, 90)
+    for query in ("a" * 70, "abc中" * 20):
+        for d in (0, 5, 10 ** 6):
+            assert PF.edit_distances(strs, query, d).tolist() == \
+                [min(edit_distance(s, query), d + 1) for s in strs]
+
+
+# ---------------------------------------------------------------------------
+# K6: sorted-set intersection counts
+# ---------------------------------------------------------------------------
+
+def _sets(rng, P, max_len, hi):
+    return [np.unique(rng.integers(0, hi, int(k), dtype=np.int64))
+            for k in rng.integers(0, max_len + 1, P)]
+
+
+@pytest.mark.parametrize("P", [1, 16, 17, 200])
+@pytest.mark.parametrize("hi", [40, 2 ** 40])
+def test_set_intersect_counts_match_reference(RF, P, hi):
+    """P <= 16: the reference's intersect1d loop; P > 16: its x64 jnp
+    core, exact for codes far above 2**24."""
+    rng = np.random.default_rng(P + (hi > 100))
+    a, b = _sets(rng, P, 12, hi), _sets(rng, P, 9, hi)
+    got = PF.set_intersect_counts(a, b)
+    assert got.dtype == np.int64 and got.shape == (P,)
+    np.testing.assert_array_equal(
+        got, RF.set_intersect_counts(a, b, force_pallas=False))
+
+
+@pytest.mark.parametrize("P", [5, 40])
+def test_set_intersect_counts_padded_match_reference(RF, P):
+    """The FuzzyJoin layout: sentinel-padded rows of one record matrix
+    gathered per pair, a rows masked by their lengths."""
+    rng = np.random.default_rng(P)
+    recs = _sets(rng, 12, 10, 2 ** 30)
+    width = max(len(r) for r in recs)
+    mat = np.full((12, width), PF._SENTINEL, dtype=np.int64)
+    for i, r in enumerate(recs):
+        mat[i, :len(r)] = r
+    sizes = np.array([len(r) for r in recs], dtype=np.int64)
+    ai, bi = rng.integers(0, 12, P), rng.integers(0, 12, P)
+    np.testing.assert_array_equal(
+        PF.set_intersect_counts_padded(mat[ai], sizes[ai], mat[bi],
+                                       sizes[bi]),
+        RF.set_intersect_counts_padded(mat[ai], sizes[ai], mat[bi],
+                                       sizes[bi], force_pallas=False))
+
+
+def test_set_intersect_counts_match_pallas_interpret(RF):
+    rng = np.random.default_rng(11)
+    a, b = _sets(rng, 8, 6, 30), _sets(rng, 8, 5, 30)
+    np.testing.assert_array_equal(
+        PF.set_intersect_counts(a, b),
+        RF.set_intersect_counts(a, b, force_pallas=True, interpret=True))
+
+
+# ---------------------------------------------------------------------------
+# A7: bitset popcount; encode_bitsets; Jaccard
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("vocab", [1, 31, 33, 800, 5000])
+def test_encode_bitsets_bit_identical(RF, vocab):
+    rng = np.random.default_rng(vocab)
+    rows = 9
+    sizes = rng.integers(0, min(vocab, 20) + 1, rows)
+    seg = np.repeat(np.arange(rows, dtype=np.int64), sizes)
+    codes = np.concatenate([rng.choice(vocab, int(k), replace=False)
+                            for k in sizes]).astype(np.int64)
+    got = PF.encode_bitsets(codes, seg, rows, vocab)
+    ref = RF.encode_bitsets(codes, seg, rows, vocab)
+    assert got.dtype == np.uint32
+    np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("R,W,P", [(1, 1, 1), (5, 3, 11), (300, 32, 1000)])
+def test_bitset_intersect_counts_match_reference(RF, R, W, P):
+    rng = np.random.default_rng(R + W + P)
+    bits = rng.integers(0, 2 ** 32, (R, W), dtype=np.uint64).astype(
+        np.uint32)
+    bits[0] = 0xFFFFFFFF                        # every bit, sign bit too
+    ai, bi = rng.integers(0, R, P), rng.integers(0, R, P)
+    got = PF.bitset_intersect_counts(bits, ai, bi)
+    assert got.dtype == np.int64 and got.shape == (P,)
+    np.testing.assert_array_equal(
+        got, RF.bitset_intersect_counts(bits, ai, bi))
+
+
+def test_bitset_intersect_counts_refuse_out_of_range_rows():
+    bits = np.zeros((4, 2), dtype=np.uint32)
+    with pytest.raises(IndexError):
+        PF.bitset_intersect_counts(bits, np.array([0, 4]), np.array([1, 1]))
+
+
+@pytest.mark.parametrize("P", [3, 40])
+def test_jaccard_sims_bit_identical(RF, P):
+    rng = np.random.default_rng(P)
+    a, b = _sets(rng, P, 8, 30), _sets(rng, P, 8, 30)
+    a[0], b[0] = a[0][:0], b[0][:0]             # two empty sets -> 1.0
+    got = PF.jaccard_sims(a, b)
+    ref = RF.jaccard_sims(a, b, force_pallas=False)
+    assert got.dtype == np.float64
+    assert got.tobytes() == ref.tobytes()
+    inter = rng.integers(0, 5, P)
+    sa, sb = inter + rng.integers(0, 5, P), inter + rng.integers(0, 5, P)
+    assert PF.jaccard_from_counts(inter, sa.astype(float),
+                                  sb.astype(float)).tobytes() == \
+        RF.jaccard_from_counts(inter, sa.astype(float),
+                               sb.astype(float)).tobytes()

@@ -78,7 +78,11 @@ def test_entry_points_raise_without_a_card_unless_cpu_is_chosen():
         for call in (lambda: K.range_mask([(x, v, 1, 5)], 16),
                      lambda: K.fused_filter_aggregate([], [(x, v)], 16),
                      lambda: K.sorted_intersect_mask(x, x[::2]),
-                     lambda: F.t_occurrence_mask(x, 16, 1)):
+                     lambda: F.t_occurrence_mask(x, 16, 1),
+                     lambda: F.edit_distances(["tpu"], "tpv", 1),
+                     lambda: F.set_intersect_counts([x], [x]),
+                     lambda: F.bitset_intersect_counts(
+                         np.ones((2, 1), np.uint32), x[:1], x[:1])):
             with pytest.raises(RuntimeError, match="set_device"):
                 call()
     finally:
@@ -103,9 +107,21 @@ def test_run_query_refuses_a_mesh():
 
 
 def test_ngram_index_refused_until_fuzzy_slice():
+    """Once refused until the fuzzy slice landed: an ngram index is now
+    created (backfilling existing components) and probed on the CPU."""
     import repro_torch
     from repro_torch.configs.tinysocial import build_dataverse
+    from repro_torch.core import algebra as A
+    from repro_torch.fuzzy import fuzzy_predicate
+    from repro_torch.storage.query import run_query
     repro_torch.set_device("cpu")
     _, ds = build_dataverse(10, 20, num_partitions=2, flush_threshold=8)
-    with pytest.raises(NotImplementedError, match="fuzzy slice"):
-        ds["MugshotUsers"].create_index("name", kind="ngram")
+    ds["MugshotUsers"].create_index("name", kind="ngram")
+    assert ds["MugshotUsers"].index_kinds["name"] == "ngram"
+    spec = ("name", "ed", "User Number 3", 1)
+    rows, ex = run_query(A.select(A.scan("MugshotUsers"),
+                                  pred=fuzzy_predicate(spec),
+                                  fields=["name"], fuzzy=spec), ds,
+                         vectorize=True)
+    assert ex.stats.rows_fallback == 0 and ex.stats.rows_fuzzy_vectorized
+    assert sorted(r["id"] for r in rows) == list(range(10))

@@ -1,4 +1,4 @@
-"""The PyTorch port's CUDA kernels (K1-K4) against their plain PyTorch
+"""The PyTorch port's CUDA kernels (K1-K6, A7) against their plain PyTorch
 versions on the card, at small shapes and at the main path's shapes, and
 the port's query path on the card against the same path on the CPU.
 
@@ -67,7 +67,37 @@ def test_t_occurrence_kernel(dev, threshold, sizes, tiers):
     assert r["ok"], r
 
 
-@pytest.mark.parametrize("i", range(5))
+@pytest.mark.parametrize("B,L", [(1, 0), (5, 3), (33, 20), (1000, 70)])
+@pytest.mark.parametrize("query", ["", "Nmb", "User Number 123",
+                                   "é" * 63, "User Number 123" * 5])
+def test_edit_distance_kernel(dev, B, L, query):
+    """Empty strings and query, d = 0, non-ASCII code points, strings
+    longer than the query, and queries past the shared-memory row (the
+    scratch path)."""
+    import numpy as np
+    strs = SC._random_strings(np.random.default_rng(B + L), B, L)
+    for d in (0, 1, 3, 1000):
+        r = SC.run_case(SC.k5_case(strs, query, d, dev), timed=False)
+        assert r["ok"], r
+
+
+@pytest.mark.parametrize("P,s1,s2,vocab", [(1, 1, 1, 4), (17, 5, 9, 50),
+                                           (1000, 32, 16, 1 << 40),
+                                           (5000, 64, 128, 300)])
+def test_set_intersect_kernel(dev, P, s1, s2, vocab):
+    r = SC.run_case(SC.k6_case(P, s1, s2, vocab, seed=P, dev=dev),
+                    timed=False)
+    assert r["ok"], r
+
+
+@pytest.mark.parametrize("R,W,P", [(1, 1, 1), (7, 3, 50), (1000, 32, 5000),
+                                   (64, 100, 3000)])
+def test_bitset_intersect_kernel(dev, R, W, P):
+    r = SC.run_case(SC.a7_case(R, W, P, 0.3, seed=R, dev=dev), timed=False)
+    assert r["ok"], r
+
+
+@pytest.mark.parametrize("i", range(10))
 def test_main_path_shapes(dev, i):
     r = SC.run_case(SC.main_path_cases(dev)[i], timed=False)
     assert r["ok"], r
@@ -111,4 +141,50 @@ def test_query_path_on_card_equals_cpu(dev):
         out[name] = res
     repro_torch.set_device("cuda")
     assert out["cuda"] == out["cpu"]
-    assert all(v > 0 for v in SC.launch_counts().values())
+    counts = SC.launch_counts()
+    for k in ("range_mask", "fused_filter_aggregate", "sorted_intersect_mask",
+              "t_occurrence_mask"):
+        assert counts[k] > 0, k
+
+
+def test_fuzzy_path_on_card_equals_cpu(dev):
+    """Fuzzy selects, a fuzzy keyword probe and FuzzyJoin on the card give
+    the rows, pairs and accounting of the same run on the CPU."""
+    from repro_torch.configs.tinysocial import build_dataverse
+    from repro_torch.core import algebra as A
+    from repro_torch.data.dedup import FuzzyJoin
+    from repro_torch.fuzzy import fuzzy_predicate
+    from repro_torch.storage.query import run_query
+    specs = [("name", "ed", "User Number 123", 1),
+             ("name", "ed", "User Number 123", 3),
+             ("name", "jaccard", "User Number 123", 0.8)]
+    plans = [A.select(A.scan("MugshotUsers"), pred=fuzzy_predicate(s),
+                      fields=["name"], fuzzy=s) for s in specs]
+    plans.append(A.select(A.scan("MugshotUsers"), pred=lambda r: True,
+                          fields=["alias"], keyword=("alias", "user12", 1)))
+    recs = [(i, {f"t{(i * 7 + j) % 97}" for j in range(12)})
+            for i in range(300)]
+    wide = [(i, {f"w{i // 10}_{j}" for j in range(300)}
+             | {f"u{i}_{j}" for j in range(120)}) for i in range(300)]
+    out = {}
+    SC.reset_launch_counts()
+    for name in ("cuda", "cpu"):
+        repro_torch.set_device(name)
+        _, ds = build_dataverse(3000, 100, num_partitions=3,
+                                flush_threshold=512)
+        ds["MugshotUsers"].create_index("name", kind="ngram")
+        ds["MugshotUsers"].create_index("alias", kind="keyword")
+        res = []
+        for plan in plans:
+            rows, ex = run_query(plan, ds, vectorize=True)
+            res.append((sorted(repr(sorted(r.items())) for r in rows),
+                        ex.stats.rows_fallback, ex.stats.rows_fuzzy_vectorized))
+        res.append(FuzzyJoin(threshold=0.5).run(recs))
+        res.append(FuzzyJoin(threshold=0.3).run(wide))
+        out[name] = res
+    repro_torch.set_device("cuda")
+    assert out["cuda"] == out["cpu"]
+    counts = SC.launch_counts()
+    for k in ("t_occurrence_mask", "edit_distances", "set_intersect_counts",
+              "bitset_intersect_counts"):
+        assert counts[k] > 0, k
