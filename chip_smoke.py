@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch port (``src/repro_torch``).
 
-Drives the port's columnar and fuzzy query paths on one CUDA device and
-checks them:
+Drives the port's columnar and fuzzy query paths and its model serving
+path on one CUDA device and checks them:
 
   1. device   the card's name and power limit (nvidia-smi)
-  2. build    the seven CUDA kernels from src/repro_torch/kernels/csrc
-  3. kernels  K1-K6 and A7 against their plain PyTorch versions at
-              main-path shapes, timed beside their bound and, where one
-              PyTorch call computes the same function, that call
+  2. build    the ten CUDA kernels from src/repro_torch/kernels/csrc
+  3. kernels  K1-K9 and A7 against their plain PyTorch versions at
+              main-path shapes (the serve phase's too), timed beside
+              their bound and, where one PyTorch call computes the same
+              function, that call
   4. main     TinySocial ingested through ``insert_batch`` (tiered merges
               run K3), then the table-3 query classes through
               ``run_query(..., vectorize=True)``, cold and warm, checked
@@ -20,6 +21,13 @@ checks them:
               full scan; ``FuzzyJoin.run`` on table 3's message tags and
               on clustered records (A7, and K6 past a 2**15 vocabulary),
               checked against the per-pair verify loop
+  4c. serve   deepseek-67b at its published widths, depth cut to 8 layers,
+              float32 weights from a seeded generator: 8 requests of 512
+              prompt tokens through one prefill (K7, K8), then 319 greedy
+              decode steps on the flat cache and, fed the same tokens, on
+              the LSM-tiered cache (K7, K9); checks prefill-decode
+              consistency, flat against tiered logits at every step, the
+              LSM counters and the launch counts
   5. a ``kernels`` JSON line, the card line, and the ``ok`` JSON line last
 
 Usage:  python3 chip_smoke.py [--messages 2000000] [--users 200000]
@@ -109,6 +117,7 @@ COLUMNAR_PATH = ("range_mask", "fused_filter_aggregate",
                  "sorted_intersect_mask", "t_occurrence_mask")
 FUZZY_PATH = ("t_occurrence_mask", "edit_distances", "set_intersect_counts",
               "bitset_intersect_counts")
+SERVE_PATH = ("rmsnorm", "flash_attention", "lsm_decode_attention")
 
 
 def canon(rows):
@@ -339,6 +348,180 @@ def fuzzy_phase(ds, rec):
     print(f"fuzzy: kernel shapes seen {seen}")
 
 
+# ---------------------------------------------------------------------------
+# the model serving path (src/repro_torch/launch/serve.py)
+# ---------------------------------------------------------------------------
+
+SERVE = {"arch": "deepseek-67b", "layers": 8, "requests": 8, "prompt": 512,
+         "gen": 320, "tail_cap": 64, "l1_comps": 4}
+# Logits of two float32 routes through the same model: the prefill's
+# 4,104-row products and K8 against the decode's 8-row products and K9,
+# or one K9 component against L2 + L1 + tail merged.  cuBLAS and the
+# kernels sum d = 8192 (and 22,016) terms in other orders on each route,
+# a few 1e-7 relative per product, compounding over 8 layers to ~1e-5 of
+# the largest logit; 1e-3 of it leaves 100x margin and still fails a
+# wrong position, mask or cache row (errors of order 1e-1 and above).
+LOGIT_RTOL = 1e-3
+
+
+def _logit_err(got, want):
+    import torch
+    err = float((got - want).abs().max())
+    return err, err <= LOGIT_RTOL * max(1.0, float(want.abs().max())) \
+        and bool(torch.isfinite(got).all())
+
+
+def serve_phase(seed):
+    """Phase 4c; returns the launch counts of the main serve run (the
+    prefill and both decode runs)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import selfcheck
+    from repro_torch.launch import serve
+    c = SERVE
+    L, B, P, T = c["layers"], c["requests"], c["prompt"], c["gen"]
+    cfg = dataclasses.replace(
+        serve.build_config(c["arch"], reduce=False, layers=L,
+                           kv_layout="flat"),
+        kv_tail_cap=c["tail_cap"], kv_l1_comps=c["l1_comps"])
+    tiered = dataclasses.replace(cfg, kv_layout="tiered")
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = serve.make_params(cfg, seed)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(params))
+    print(f"serve: {cfg.name} d_model {cfg.d_model} heads {cfg.num_heads} "
+          f"kv_heads {cfg.num_kv_heads} head_dim {cfg.resolved_head_dim} "
+          f"d_ff {cfg.d_ff} vocab {cfg.vocab_size}, {L} of "
+          f"{get_config(c['arch']).num_layers} layers: {n_params} "
+          f"float32 parameters made on the card in "
+          f"{time.perf_counter() - t} s; matmul TF32 "
+          f"{torch.backends.cuda.matmul.allow_tf32}, cudnn TF32 "
+          f"{torch.backends.cudnn.allow_tf32}")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 1)
+    prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
+                            device="cuda")
+    per_fwd = 2 * L + 1                     # norm1, norm2 a layer, final
+    want = {"prefill": {"rmsnorm": per_fwd, "flash_attention": L,
+                        "lsm_decode_attention": 0},
+            "flat": {"rmsnorm": per_fwd * (T - 1), "flash_attention": 0,
+                     "lsm_decode_attention": L * (T - 1)},
+            "tiered": {"rmsnorm": per_fwd * (T - 1), "flash_attention": 0,
+                       "lsm_decode_attention":
+                       L * (2 + c["l1_comps"]) * (T - 1)}}
+    total = dict.fromkeys(selfcheck.KERNELS, 0)
+
+    def counted(name, fn):
+        selfcheck.reset_launch_counts()
+        out = fn()
+        got = selfcheck.launch_counts()
+        for k, n in want[name].items():
+            check(got[k] == n, f"serve {name}: {k} launched {got[k]} "
+                               f"times, expected {n}")
+        for k, n in got.items():
+            total[k] += n
+        print(f"serve {name}: launches {json.dumps(got)} (as expected)")
+        return out
+
+    pre = counted("prefill", lambda: serve.prefill(params, cfg, prompts))
+    logits0 = pre["logits"]
+    check(tuple(logits0.shape) == (B, cfg.vocab_size)
+          and bool(torch.isfinite(logits0).all()), "prefill logits")
+    print(f"serve prefill: {B} x {P} tokens in {pre['seconds']} s, "
+          f"{B * P / pre['seconds']} tokens/s (host clock to synchronize)")
+    first = logits0.argmax(-1)[:, None]
+    runs = {}
+    for name, layout_cfg, forced in (("flat", cfg, None),
+                                     ("tiered", tiered, "flat")):
+        cache = serve.prepare_cache(layout_cfg, pre["cache"], P + T)
+        ft = None if forced is None else runs[forced]["tokens"][:, 1:]
+        runs[name] = counted(name, lambda: serve.decode(
+            params, layout_cfg, cache, first, P, T - 1, forced=ft,
+            keep_logits=True))
+        r = runs[name]
+        print(f"serve decode {name}: {B} x {T - 1} tokens in "
+              f"{r['seconds']} s, {B * (T - 1) / r['seconds']} tokens/s "
+              f"(host clock to synchronize)")
+    # (d) the LSM counters after T - 1 tiered steps
+    steps = T - 1
+    flushes = (steps - 1) // c["tail_cap"]
+    merges = flushes // c["l1_comps"]
+    for i, st in enumerate(runs["tiered"]["cache"]):
+        check((st["flushes"], st["merges"]) == (flushes, merges),
+              f"tiered layer {i}: flushes {st['flushes']} merges "
+              f"{st['merges']}, expected {flushes} and {merges}")
+    print(f"serve tiered: flushes {flushes} merges {merges} in each of "
+          f"{L} layers; L2 {runs['tiered']['cache'][0]['l2_len']} rows, "
+          f"L1 {runs['tiered']['cache'][0]['l1_count']} slots, tail "
+          f"{runs['tiered']['cache'][0]['tail_len']}")
+    # (c) tiered logits against flat logits at every step
+    worst = 0.0
+    for t, (a, b) in enumerate(zip(runs["tiered"]["logits"],
+                                   runs["flat"]["logits"])):
+        err, ok = _logit_err(a, b)
+        check(ok, f"tiered step {t}: logits differ from flat by {err}")
+        worst = max(worst, err)
+    print(f"serve: tiered logits equal flat logits at all {steps} steps, "
+          f"max abs difference {worst} (bound {LOGIT_RTOL} x max |logit|)")
+    # (b) decoding token P at pos P equals prefilling P + 1 tokens
+    oracle = serve.prefill(params, cfg, torch.cat([prompts, first], 1))
+    for name in ("flat", "tiered"):
+        err, ok = _logit_err(runs[name]["logits"][0], oracle["logits"])
+        check(ok, f"{name}: decode at pos {P} differs from a prefill of "
+                  f"{P + 1} tokens by {err}")
+        print(f"serve {name}: decode of token {P} equals the prefill of "
+              f"{P + 1} tokens, max abs difference {err}")
+    print(f"serve: peak device memory {torch.cuda.max_memory_allocated()} "
+          f"B; generated tokens {runs['flat']['tokens'].shape}")
+    # where a decode step's time goes: a few steps under the profiler
+    for name, layout_cfg in (("flat", cfg), ("tiered", tiered)):
+        cache = serve.prepare_cache(layout_cfg, pre["cache"], P + T)
+        wall, busy, top = _profile_decode(serve, params, layout_cfg, cache,
+                                          first, P, PROFILED_STEPS)
+        print(f"serve profile {name}: {PROFILED_STEPS} steps, per step "
+              f"{wall / PROFILED_STEPS} s host clock (profiler on), device "
+              f"busy {busy / PROFILED_STEPS} s, idle share "
+              f"{1 - busy / wall}; top device time per step: "
+              + "; ".join(f"{k[:70]} {us / PROFILED_STEPS / 1e3} ms x"
+                          f"{n // PROFILED_STEPS}" for us, k, n in top))
+    del params, pre, runs, oracle
+    torch.cuda.empty_cache()
+    return total
+
+
+PROFILED_STEPS = 4
+
+
+def _profile_decode(serve, params, cfg, cache, first, pos, steps):
+    """(host s, device busy s, top kernels) of ``steps`` decode steps
+    under torch.profiler; top entries are (device us, name, calls)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t = time.perf_counter()
+        serve.decode(params, cfg, cache, first, pos, steps)
+        wall = time.perf_counter() - t
+    rows = sorted(((e.self_device_time_total, e.key, e.count)
+                   for e in prof.key_averages()
+                   if e.self_device_time_total > 0), reverse=True)
+    return wall, sum(r[0] for r in rows) / 1e6, rows[:6]
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--messages", type=int, default=2_000_000)
@@ -347,6 +530,7 @@ def main() -> int:
     ap.add_argument("--flush-threshold", type=int, default=65536)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     # -- 1. device ---------------------------------------------------------
     import torch
@@ -364,6 +548,9 @@ def main() -> int:
     from repro_torch.kernels import device_pool, ops, selfcheck
     from repro_torch.storage import dataset, query
     repro_torch.set_device("cuda")
+    # float32 products in full float32 (the PyTorch defaults, stated)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(f"device: {kind} | nvidia-smi: {card} | torch {torch.__version__}"
@@ -387,7 +574,11 @@ def main() -> int:
     # -- 3. kernels against their plain versions ---------------------------
     dev = torch.device("cuda", 0)
     results = {}
-    for case in selfcheck.main_path_cases(dev, seed=args.seed):
+    serve_shapes = {k: SERVE[k] for k in ("prompt", "gen", "tail_cap",
+                                          "l1_comps")}
+    for case in (selfcheck.main_path_cases(dev, seed=args.seed)
+                 + selfcheck.serve_cases(dev, args.seed, SERVE["requests"],
+                                         **serve_shapes)):
         r = selfcheck.run_case(case)
         print(f"kernel {r['kernel']} [{r['label']}]: max_abs_err "
               f"{r['max_abs_err']} ms {r['ms']} (call {r['call_ms']}) "
@@ -460,6 +651,13 @@ def main() -> int:
     for k in FUZZY_PATH:
         check(fuzzy_counts[k] > 0,
               f"kernel {k} never launched on the fuzzy path")
+    # -- 4c. serve path ----------------------------------------------------
+    t0 = time.perf_counter()
+    serve_counts = serve_phase(args.seed)
+    print(f"serve: phase took {time.perf_counter() - t0} s (host clock)")
+    for k in SERVE_PATH:
+        check(serve_counts[k] > 0, f"kernel {k} never launched on the "
+                                   f"serve path")
     snap = obs.snapshot()
     print(f"main: buffer_pool.resident_bytes "
           f"{snap.get('buffer_pool.resident_bytes')} entries "
@@ -472,9 +670,11 @@ def main() -> int:
         r = results[name][0]
         entry = {"name": name, "route": "cuda", "source": meta["source"],
                  "replaces": meta["replaces"],
-                 "launches": counts[name] + fuzzy_counts[name],
+                 "launches": (counts[name] + fuzzy_counts[name]
+                              + serve_counts[name]),
                  "launches_columnar": counts[name],
                  "launches_fuzzy": fuzzy_counts[name],
+                 "launches_serve": serve_counts[name],
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                  "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                  "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -488,6 +688,8 @@ def main() -> int:
                 for o in results[name][1:]]
         line.append(entry)
     print(json.dumps({"kernels": line}))
+    print(f"chip_smoke: whole run {time.perf_counter() - t_start} s "
+          f"(host clock, kernel build included)")
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

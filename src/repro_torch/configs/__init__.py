@@ -1,1 +1,2 @@
-"""Dataset configurations (TinySocial, the paper's running example)."""
+"""Dataset and model configurations: TinySocial (the paper's running
+example) and the model architectures of the registry."""

@@ -1,0 +1,107 @@
+"""K8: blockwise causal GQA flash-attention forward (the reference's
+``kernels/flash_attention.py``).
+
+  flash_plain(q, k, v, ...)   the plain PyTorch version: the oracle
+                              ``ref.flash_attention_ref`` over the valid keys
+  flash_cuda(q, k, v, ...)    the CUDA kernel csrc/flash_attention.cu
+  flash_attention_fwd(...)    dispatch on q's device
+
+Layout: the model's, q [B, Sq, H, hd] and k/v [B, Skv, KV, hd] (H = KV*G,
+query head h reads KV head h // G), output like q.  The Pallas kernel's
+fused layout q [B*H, Sq, hd], k/v [B*KV, Skv, hd] is the same call with
+B = 1 and the heads fused (``fused_layout``): query head b*H + h reads KV
+head (b*H + h) // G = b*KV + h // G.  The kernel reads any strides with a
+unit stride along hd, so the model path hands it q, k and v as they come
+out of the projections, with no transpose and no padding.
+
+Masks: ``causal`` with ``q_offset`` (query i sits at position q_offset + i)
+and ``kv_len``, the number of valid keys (the rest of k and v is never
+read).  The reference's ``ops.flash_attention`` lets zero-padded keys into
+the softmax when causal, Sq > Skv and Skv is not a block multiple; this
+port follows the oracle instead (tests/test_torch_model_ops.py).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from . import ops as _ops
+from .ref import flash_attention_ref
+from .rmsnorm import DTYPES
+
+__all__ = ["flash_plain", "flash_cuda", "flash_attention_fwd",
+           "fused_layout", "HEAD_DIMS"]
+
+HEAD_DIMS = (16, 32, 64, 128)
+
+
+def flash_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                causal: bool = True, q_offset: int = 0,
+                kv_len: Optional[int] = None) -> torch.Tensor:
+    """K8's plain version: the oracle over keys [0, kv_len)."""
+    n = k.shape[1] if kv_len is None else kv_len
+    return flash_attention_ref(q, k[:, :n], v[:, :n], causal=causal,
+                               q_offset=q_offset)
+
+
+def _strides(t: torch.Tensor) -> "ctypes.Array":
+    return (ctypes.c_int64 * 3)(t.stride(0), t.stride(1), t.stride(2))
+
+
+def flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               causal: bool = True, q_offset: int = 0,
+               kv_len: Optional[int] = None) -> torch.Tensor:
+    """K8 on the card: [B, Sq, H, hd] in q's dtype."""
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    n = k.shape[1] if kv_len is None else kv_len
+    if not (q.is_cuda and k.is_cuda and v.is_cuda and q.dim() == 4
+            and k.dim() == 4 and k.shape == v.shape
+            and k.stride() == v.stride() and k.shape[0] == B
+            and k.shape[3] == hd and H % KV == 0
+            and q.dtype == k.dtype == v.dtype and q.dtype in DTYPES
+            and hd in HEAD_DIMS and 1 <= n <= k.shape[1]
+            and q.stride(3) == 1 and k.stride(3) == 1):
+        raise TypeError("flash_cuda: CUDA float32/bfloat16 q [B, Sq, H, hd] "
+                        "and k, v [B, Skv, KV, hd] (same strides, unit "
+                        f"stride along hd, hd in {HEAD_DIMS}, "
+                        "1 <= kv_len <= Skv) expected")
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    f = _ops.lib().rt_flash_attention
+    f.restype = ctypes.c_int
+    I, P = ctypes.c_int, ctypes.c_void_p
+    f.argtypes = [P, P, P, P, I, I, I, I, I, I, I, P, P, P, I, I,
+                  ctypes.c_float, P]
+    qs, ks, os_ = _strides(q), _strides(k), _strides(out)
+    rc = f(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+           DTYPES[q.dtype], B, H, KV, Sq, n, hd, ctypes.addressof(qs),
+           ctypes.addressof(ks), ctypes.addressof(os_), int(bool(causal)),
+           q_offset, 1.0 / math.sqrt(hd), _ops.stream(q))
+    flash_cuda.launches += 1
+    _ops.check(rc, "flash_attention")
+    return out
+
+
+flash_cuda.launches = 0
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, q_offset: int = 0,
+                        kv_len: Optional[int] = None) -> torch.Tensor:
+    """K8 for CUDA tensors (raises on what it does not take), its plain
+    version for CPU ones."""
+    if q.is_cuda:
+        return flash_cuda(q, k, v, causal, q_offset, kv_len)
+    return flash_plain(q, k, v, causal, q_offset, kv_len)
+
+
+def fused_layout(q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor) -> tuple:
+    """View the Pallas kernel's q [B*H, Sq, hd], k/v [B*KV, Skv, hd] as the
+    model layout with B = 1 (no copy)."""
+    return (q.permute(1, 0, 2).unsqueeze(0), k.permute(1, 0, 2).unsqueeze(0),
+            v.permute(1, 0, 2).unsqueeze(0))

@@ -6,7 +6,9 @@ it needs a CUDA device.  Every case builds its inputs from a numpy seed on
 the card, runs the kernel and its plain PyTorch version on the same
 tensors, and compares them: masks, counts and distances exactly,
 float64 sums within ``SUM_RTOL`` relative (the kernel folds partial sums
-in a fixed tree order, the plain version in torch's order).
+in a fixed tree order, the plain version in torch's order), and the model
+kernels' float32 results within ``MODEL_RTOL`` (bfloat16 outputs within
+``BF16_RTOL``) of the largest reference magnitude.
 
 Two times are taken per call, with the L2 cache flushed before each call
 (the main path meets its operands cold): ``ms``, the device time of the
@@ -28,12 +30,17 @@ import numpy as np
 import torch
 
 from . import columnar_ops as CO
+from . import flash_attention as FA
 from . import fuzzy_ops as FO
+from . import lsm_decode_attention as LD
+from . import rmsnorm as RN
 from .columnar_ops import _prep_bounds
 
-__all__ = ["KERNELS", "SUM_RTOL", "launch_counts", "reset_launch_counts",
-           "k1_case", "k2_case", "k3_case", "k4_case", "k5_case", "k6_case",
-           "a7_case", "main_path_cases", "run_case", "device_ms"]
+__all__ = ["KERNELS", "SUM_RTOL", "MODEL_RTOL", "BF16_RTOL",
+           "launch_counts", "reset_launch_counts", "k1_case", "k2_case",
+           "k3_case", "k4_case", "k5_case", "k6_case", "a7_case", "k7_case",
+           "k8_case", "k9_case", "main_path_cases", "serve_cases",
+           "run_case", "device_ms"]
 
 # H100 SXM (NVIDIA data sheet): HBM3 bandwidth and the FP32 rate outside
 # the tensor cores, the rate used for the kernels' scalar integer
@@ -41,6 +48,14 @@ __all__ = ["KERNELS", "SUM_RTOL", "launch_counts", "reset_launch_counts",
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
 SUM_RTOL = 1e-9
+# float32 model kernels against their plain versions: the same sums
+# (8192-term squares, 128-term dot products, softmax sums over up to 1,088
+# keys) in another order move a result by a few 1e-7 of the largest
+# magnitude; 1e-5 leaves a wide margin and still catches a wrong mask, a
+# wrong head mapping or a lost tile (errors of order 1e-1)
+MODEL_RTOL = 1e-5
+# bfloat16 outputs: one rounding step (2^-8 relative) either side
+BF16_RTOL = 2.0 ** -7
 
 KERNELS = {
     "range_mask": {
@@ -71,6 +86,18 @@ KERNELS = {
         "source": "src/repro_torch/kernels/csrc/bitset_intersect.cu",
         "replaces": "src/repro/kernels/fuzzy_ops.py:501",
         "wrapper": FO.popcount_cuda},
+    "rmsnorm": {
+        "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+        "replaces": "src/repro/kernels/rmsnorm.py:19",
+        "wrapper": RN.rmsnorm_cuda},
+    "flash_attention": {
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:29",
+        "wrapper": FA.flash_cuda},
+    "lsm_decode_attention": {
+        "source": "src/repro_torch/kernels/csrc/lsm_decode_attention.cu",
+        "replaces": "src/repro/kernels/lsm_decode_attention.py:32",
+        "wrapper": LD.decode_partial_cuda},
 }
 
 
@@ -347,6 +374,157 @@ def main_path_cases(dev: torch.device, seed: int = 0) -> List[Dict]:
 
 
 # ---------------------------------------------------------------------------
+# model-stack cases (K7-K9): float results within a relative tolerance
+# ---------------------------------------------------------------------------
+
+def _parts(x: Any) -> Tuple[torch.Tensor, ...]:
+    return tuple(x) if isinstance(x, (tuple, list)) else (x,)
+
+
+def _float_check(rtol: float) -> Callable[[Any, Any], Tuple[float, bool]]:
+    """(max abs error, ok): each output within ``rtol`` of the largest
+    magnitude of its reference (entries at NEG_INF, an empty component's
+    max, must match exactly and set no scale)."""
+    def check(got: Any, ref: Any) -> Tuple[float, bool]:
+        err, ok = 0.0, True
+        for g, r in zip(_parts(got), _parts(ref)):
+            g, r = g.float(), r.float()
+            if g.shape != r.shape:
+                return math.inf, False
+            e = float((g - r).abs().max()) if r.numel() else 0.0
+            live = r.abs() < 1e29
+            scale = max(1.0, float(r[live].abs().max()) if live.any()
+                        else 0.0)
+            ok = ok and e <= rtol * scale      # False for a NaN error
+            err = max(err, e)
+        return err, ok
+    return check
+
+
+def _randn(rng: np.random.Generator, shape: Tuple[int, ...],
+           dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
+    return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                            ).to(dev).to(dtype)
+
+
+def _rtol(dtype: torch.dtype) -> float:
+    return BF16_RTOL if dtype == torch.bfloat16 else MODEL_RTOL
+
+
+def k7_case(N: int, d: int, seed: int, dev: torch.device,
+            dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
+    """K7 over x [N, d] in ``dtype`` with float32 weights."""
+    rng = np.random.default_rng(seed)
+    x = _randn(rng, (N, d), dtype, dev)
+    w = _randn(rng, (d,), torch.float32, dev)
+    return {"kernel": "rmsnorm", "label": f"x [{N}, {d}] {dtype}",
+            "run": lambda: RN.rmsnorm_cuda(x, w),
+            "plain": lambda: RN.rmsnorm_plain(x, w),
+            "library": lambda: torch.nn.functional.rms_norm(
+                x, (d,), w.to(dtype), eps=1e-5),
+            "check": _float_check(_rtol(dtype)),
+            "bytes": 2 * x.numel() * x.element_size() + 4 * d,
+            "ops": 4 * N * d}
+
+
+def k8_case(B: int, H: int, KV: int, Sq: int, Skv: int, hd: int, seed: int,
+            dev: torch.device, causal: bool = True, q_offset: int = 0,
+            kv_len: Optional[int] = None, fused: bool = False,
+            dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
+    """K8 in the model layout (q [B, Sq, H, hd], k/v [B, Skv, KV, hd]) or,
+    with ``fused``, the Pallas kernel's q [B*H, Sq, hd], k/v [B*KV, Skv,
+    hd] (handed to the kernel as B = 1 views, no copy)."""
+    rng = np.random.default_rng(seed)
+    n = Skv if kv_len is None else kv_len
+    if fused:
+        qf = _randn(rng, (B * H, Sq, hd), dtype, dev)
+        kf, vf = (_randn(rng, (B * KV, Skv, hd), dtype, dev)
+                  for _ in range(2))
+        q, k, v = FA.fused_layout(qf, kf, vf)
+        label = (f"fused q [{B * H}, {Sq}, {hd}] k/v [{B * KV}, {Skv}, "
+                 f"{hd}]")
+
+        def library():   # [N, heads, S, hd]; GQA maps h -> h // G too
+            return torch.nn.functional.scaled_dot_product_attention(
+                qf[None], kf[None, :, :n], vf[None, :, :n],
+                is_causal=causal and q_offset == 0 and Sq == n,
+                enable_gqa=True)
+    else:
+        q = _randn(rng, (B, Sq, H, hd), dtype, dev)
+        k, v = (_randn(rng, (B, Skv, KV, hd), dtype, dev) for _ in range(2))
+        label = f"q [{B}, {Sq}, {H}, {hd}] k/v [{B}, {Skv}, {KV}, {hd}]"
+        library = None
+    label += (f" {'causal' if causal else 'full'} q_offset={q_offset} "
+              f"kv_len={n} {dtype}")
+    # (query, key) pairs the masks leave visible: the work this run needs
+    vis = sum(min(n, q_offset + i + 1) if causal else n for i in range(Sq))
+    esz = q.element_size()
+    return {"kernel": "flash_attention", "label": label,
+            "run": lambda: FA.flash_cuda(q, k, v, causal, q_offset, n),
+            "plain": lambda: FA.flash_plain(q, k, v, causal, q_offset, n),
+            "library": library,
+            "check": _float_check(_rtol(dtype)),
+            "bytes": esz * (2 * B * Sq * H * hd + 2 * B * n * KV * hd),
+            "ops": 4 * B * H * hd * vis}
+
+
+def k9_case(B: int, H: int, KV: int, hd: int, Sc: int, valid_len: int,
+            seed: int, dev: torch.device, name: str = "",
+            dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
+    """K9 over one component k/v [B, Sc, KV, hd] with ``valid_len`` valid
+    rows, q [B, H, hd]."""
+    rng = np.random.default_rng(seed)
+    q = _randn(rng, (B, H, hd), torch.float32, dev)
+    k, v = (_randn(rng, (B, Sc, KV, hd), dtype, dev) for _ in range(2))
+    n = max(0, min(valid_len, Sc))
+    return {"kernel": "lsm_decode_attention",
+            "label": (f"{name} k/v [{B}, {Sc}, {KV}, {hd}] valid_len={n} "
+                      f"{dtype}").strip(),
+            "run": lambda: LD.decode_partial_cuda(q, k, v, n),
+            "plain": lambda: LD.decode_partial_plain(q, k, v, n),
+            "library": None,
+            "check": _float_check(MODEL_RTOL),
+            "bytes": 4 * q.numel() + 2 * B * n * KV * hd * k.element_size()
+            + 4 * (B * H * hd + 2 * B * H),
+            "ops": 4 * B * H * hd * n}
+
+
+def serve_cases(dev: torch.device, seed: int = 0, batch: int = 8,
+                prompt: int = 512, gen: int = 320, tail_cap: int = 64,
+                l1_comps: int = 4) -> List[Dict]:
+    """K7-K9 at the shapes deepseek-67b's serve path gives them
+    (d_model 8192, 64 heads, 8 KV heads, head_dim 128) for ``batch``
+    requests of ``prompt`` tokens and ``gen`` generated ones: K7 over the
+    prefill's [batch * prompt, 8192] activations and a decode step's
+    [batch, 8192]; K8 over the prefill in the Pallas kernel's fused layout
+    (q [batch * 64, prompt, 128], k/v [batch * 8, prompt, 128]); K9 over
+    the last tiered step's L2 (prompt plus one merged ring valid, of the
+    cache_config_for capacity), a full and an empty L1 slot and the
+    tail, and the flat cache's last step."""
+    d, H, KV, hd = 8192, 64, 8, 128
+    steps = gen - 1
+    flushes = (steps - 1) // tail_cap
+    merges = flushes // l1_comps
+    max_len = prompt + gen
+    l2_cap = -(-max_len // tail_cap) * tail_cap + l1_comps * tail_cap
+    l2_valid = prompt + merges * l1_comps * tail_cap
+    tail_valid = steps - flushes * tail_cap
+    return [k7_case(batch * prompt, d, seed + 20, dev),
+            k7_case(batch, d, seed + 21, dev),
+            k8_case(batch, H, KV, prompt, prompt, hd, seed + 22, dev,
+                    fused=True),
+            k9_case(batch, H, KV, hd, l2_cap, l2_valid, seed + 23, dev, "L2"),
+            k9_case(batch, H, KV, hd, tail_cap, tail_cap, seed + 24, dev,
+                    "L1 full"),
+            k9_case(batch, H, KV, hd, tail_cap, 0, seed + 25, dev,
+                    "L1 empty"),
+            k9_case(batch, H, KV, hd, tail_cap, tail_valid, seed + 26, dev,
+                    "tail"),
+            k9_case(batch, H, KV, hd, max_len, max_len - 1, seed + 27, dev,
+                    "flat")]
+
+
+# ---------------------------------------------------------------------------
 # running one case
 # ---------------------------------------------------------------------------
 
@@ -412,14 +590,18 @@ def run_case(case: Dict[str, Any], iters: int = 20, timed: bool = True
     got = case["run"]()
     torch.cuda.synchronize()
     ref = case["plain"]()
-    err = case["compare"](got, ref)
+    if "check" in case:
+        err, ok = case["check"](got, ref)
+    else:
+        err = case["compare"](got, ref)
+        ok = math.isfinite(err) and (
+            err == 0.0 or case["kernel"] == "fused_filter_aggregate")
     again = case["run"]()                 # the kernel is deterministic
     torch.cuda.synchronize()
-    stable = torch.equal(got, again)
+    stable = all(torch.equal(a, b)
+                 for a, b in zip(_parts(got), _parts(again)))
     out = {"kernel": case["kernel"], "label": case["label"],
-           "max_abs_err": err, "ok": bool(math.isfinite(err) and stable
-                                           and (err == 0.0 or case["kernel"]
-                                                == "fused_filter_aggregate")),
+           "max_abs_err": err, "ok": bool(ok and stable),
            "bound_ms": 1e3 * max(case["bytes"] / HBM_BYTES_PER_S,
                                  case["ops"] / SCALAR_OPS_PER_S),
            "bound_by": "bytes" if case["bytes"] / HBM_BYTES_PER_S

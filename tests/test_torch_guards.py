@@ -125,3 +125,53 @@ def test_ngram_index_refused_until_fuzzy_slice():
                          vectorize=True)
     assert ex.stats.rows_fallback == 0 and ex.stats.rows_fuzzy_vectorized
     assert sorted(r["id"] for r in rows) == list(range(10))
+
+
+def test_model_entry_points_raise_without_a_card_unless_cpu_is_chosen():
+    """The model serving path (prefill, decode, the serve launcher) runs
+    on the card by default, raises without one, and runs on the CPU only
+    when asked."""
+    import torch
+    import repro_torch
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    cfg = serve.build_config("deepseek-67b", kv_layout="flat")
+    repro_torch.set_device("cpu")
+    params = serve.make_params(cfg)
+    tokens = np.zeros((1, 4), np.int64)
+    _, cache = M.make_prefill_fn(cfg)(params, {"tokens": tokens})
+    cache = serve.prepare_cache(cfg, cache, 8)
+    step = {"token": tokens[:, :1], "pos": 4}
+    argv = ["--requests", "1", "--prompt-len", "4", "--gen-tokens", "3"]
+    repro_torch.set_device("cuda")
+    try:
+        for call in (lambda: M.make_prefill_fn(cfg)(params,
+                                                    {"tokens": tokens}),
+                     lambda: M.make_decode_fn(cfg)(params, cache, step),
+                     lambda: serve.main(argv)):
+            with pytest.raises(RuntimeError, match="set_device"):
+                call()
+    finally:
+        repro_torch.set_device("cpu")
+    out = serve.main(argv + ["--device", "cpu"])
+    assert out["decode"]["tokens"].shape == (1, 3)
+    logits, _ = M.make_decode_fn(cfg)(params, cache, step)
+    assert logits.shape == (1, cfg.vocab_size)
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "olmoe-1b-7b",
+                                  "jamba-v0.1-52b", "xlstm-125m"])
+def test_unported_blocks_raise_not_implemented(arch):
+    """MoE, Mamba and xLSTM blocks come with later slices of the port."""
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import cache_specs
+    cfg = reduced(get_config(arch))
+    for call in (lambda: M.model_specs(cfg), lambda: M.make_prefill_fn(cfg),
+                 lambda: M.make_decode_fn(cfg),
+                 lambda: cache_specs(cfg, 1, 8)):
+        with pytest.raises(NotImplementedError, match="slice"):
+            call()

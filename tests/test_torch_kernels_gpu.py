@@ -1,6 +1,7 @@
-"""The PyTorch port's CUDA kernels (K1-K6, A7) against their plain PyTorch
-versions on the card, at small shapes and at the main path's shapes, and
-the port's query path on the card against the same path on the CPU.
+"""The PyTorch port's CUDA kernels (K1-K9, A7) against their plain PyTorch
+versions on the card, at small shapes and at the main paths' shapes, and
+the port's query and model serving paths on the card against the same
+paths on the CPU.
 
 Marked ``gpu``: every test needs a CUDA device and ``nvcc`` and skips
 without one.  Run on the card with
@@ -188,3 +189,108 @@ def test_fuzzy_path_on_card_equals_cpu(dev):
     for k in ("t_occurrence_mask", "edit_distances", "set_intersect_counts",
               "bitset_intersect_counts"):
         assert counts[k] > 0, k
+
+
+# ---------------------------------------------------------------------------
+# the model stack: K7 rmsnorm, K8 flash attention, K9 LSM decode attention
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("N,d", [(1, 16), (3, 96), (1000, 512), (37, 8192),
+                                 (5, 10001), (3, 40000)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel(dev, N, d, dtype):
+    """Rows in registers (d a multiple of the vector width, up to 8192
+    float32 or 16384 bfloat16 values) and the two-pass fallback."""
+    r = SC.run_case(SC.k7_case(N, d, seed=N + d, dev=dev, dtype=dtype),
+                    timed=False)
+    assert r["ok"], r
+
+
+@pytest.mark.parametrize("B,H,KV,Sq,Skv,hd,causal,q_offset,kv_len,fused", [
+    (1, 4, 4, 128, 128, 64, True, 0, None, False),     # MHA
+    (2, 8, 2, 100, 100, 32, True, 0, None, False),     # GQA, unaligned
+    (1, 4, 1, 40, 24, 16, True, 0, None, False),       # Sq > Skv
+    (2, 4, 2, 24, 40, 16, True, 0, None, False),       # Sq < Skv
+    (1, 4, 2, 8, 40, 16, True, 20, 26, False),         # offset, kv_len
+    (2, 8, 2, 77, 77, 128, False, 0, None, False),     # full attention
+    (2, 16, 2, 130, 130, 128, True, 0, None, True),    # the fused layout
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel(dev, B, H, KV, Sq, Skv, hd, causal,
+                                q_offset, kv_len, fused, dtype):
+    r = SC.run_case(SC.k8_case(B, H, KV, Sq, Skv, hd, seed=Sq + Skv,
+                               dev=dev, causal=causal, q_offset=q_offset,
+                               kv_len=kv_len, fused=fused, dtype=dtype),
+                    timed=False)
+    assert r["ok"], r
+
+
+@pytest.mark.parametrize("B,H,KV,hd,Sc", [(2, 8, 4, 32, 256),
+                                          (3, 6, 2, 16, 384),
+                                          (8, 64, 8, 128, 1088)])
+@pytest.mark.parametrize("fill", ["empty", "partial", "full"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_partial_kernel(dev, B, H, KV, hd, Sc, fill, dtype):
+    """Empty (an L1 slot with valid_len 0), partial and full components."""
+    vl = {"empty": 0, "partial": Sc - 17, "full": Sc}[fill]
+    r = SC.run_case(SC.k9_case(B, H, KV, hd, Sc, vl, seed=Sc + vl, dev=dev,
+                               dtype=dtype), timed=False)
+    assert r["ok"], r
+
+
+@pytest.mark.parametrize("i", range(8))
+def test_serve_path_shapes(dev, i):
+    r = SC.run_case(SC.serve_cases(dev)[i], timed=False)
+    assert r["ok"], r
+
+
+@pytest.mark.parametrize("arch", ["deepseek-67b", "starcoder2-3b"])
+def test_model_path_on_card_equals_cpu(dev, arch):
+    """Reduced prefill and tiered decode (with flushes and merges) on the
+    card give the CPU run's logits (the same weights) within 1e-4, the
+    reduction orders being the only difference; K8, K9 and (for an
+    RMSNorm model) K7 launch."""
+    import dataclasses
+    from repro_torch.launch.serve import build_config, prepare_cache
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import init_params
+    cfg = dataclasses.replace(build_config(arch), kv_tail_cap=4,
+                              kv_l1_comps=2)
+    gen = torch.Generator().manual_seed(0)
+    params = {"cpu": init_params(M.model_specs(cfg), gen,
+                                 torch.device("cpu"))}
+    params["cuda"] = _to(params["cpu"], dev)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 30),
+                           generator=torch.Generator().manual_seed(1))
+    out = {}
+    SC.reset_launch_counts()
+    for name in ("cuda", "cpu"):
+        repro_torch.set_device(name)
+        logits, cache = M.make_prefill_fn(cfg)(params[name],
+                                               {"tokens": tokens[:, :13]})
+        cache = prepare_cache(cfg, cache, 30)
+        steps = [logits.cpu()]
+        for t in range(13, 29):
+            logits, cache = M.make_decode_fn(cfg)(
+                params[name], cache, {"token": tokens[:, t:t + 1], "pos": t})
+            steps.append(logits.cpu())
+        out[name] = (torch.stack(steps), cache[0]["flushes"],
+                     cache[0]["merges"])
+    repro_torch.set_device("cuda")
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], atol=1e-4,
+                               rtol=1e-4)
+    assert out["cuda"][1:] == out["cpu"][1:] == (3, 1)
+    counts = SC.launch_counts()
+    path = ["flash_attention", "lsm_decode_attention"]
+    if cfg.norm_kind == "rmsnorm":
+        path.append("rmsnorm")
+    for k in path:
+        assert counts[k] > 0, k
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
