@@ -310,11 +310,11 @@ def fuzzy_phase(ds, rec):
         warm = sorted(times[1:])
         med = warm[len(warm) // 2]
         busy = selfcheck.device_ms(
-            lambda: query.run_query(plan, ds, vectorize=True)) / 1e3
-        if busy == 0 and st.kernel_dispatches:
+            lambda: query.run_query(plan, ds, vectorize=True))
+        if busy is None or (busy == 0 and st.kernel_dispatches):
             idle = "busy not measured: the profiler recorded no kernel"
         else:
-            idle = f"busy_s {busy}, idle share {1 - busy / med}"
+            idle = f"busy_s {busy / 1e3}, idle share {1 - busy / 1e3 / med}"
         print(f"query {name}: rows {len(rows)} cold_s {times[0]} "
               f"warm_s_median {med} (host clock to synchronize; "
               f"{WARM_REPEATS} warm runs) warm device {idle} (profiler) "
@@ -480,6 +480,11 @@ def serve_phase(seed):
         cache = serve.prepare_cache(layout_cfg, pre["cache"], P + T)
         wall, busy, top = _profile_decode(serve, params, layout_cfg, cache,
                                           first, P, PROFILED_STEPS)
+        if busy == 0:
+            print(f"serve profile {name}: {PROFILED_STEPS} steps, per step "
+                  f"{wall / PROFILED_STEPS} s host clock; device busy not "
+                  f"measured: the profiler recorded no kernel")
+            continue
         print(f"serve profile {name}: {PROFILED_STEPS} steps, per step "
               f"{wall / PROFILED_STEPS} s host clock (profiler on), device "
               f"busy {busy / PROFILED_STEPS} s, idle share "
@@ -573,6 +578,10 @@ def main() -> int:
 
     # -- 3. kernels against their plain versions ---------------------------
     dev = torch.device("cuda", 0)
+    print("timer: " + ("torch.profiler device time (CUPTI)"
+                       if selfcheck.profiler_works() else
+                       "CUDA events around each call: torch.profiler "
+                       "recorded no device time"))
     results = {}
     serve_shapes = {k: SERVE[k] for k in ("prompt", "gen", "tail_cap",
                                           "l1_comps")}
@@ -581,7 +590,8 @@ def main() -> int:
                                          **serve_shapes)):
         r = selfcheck.run_case(case)
         print(f"kernel {r['kernel']} [{r['label']}]: max_abs_err "
-              f"{r['max_abs_err']} ms {r['ms']} (call {r['call_ms']}) "
+              f"{r['max_abs_err']} ms {r['ms']} ({r['ms_timer']}; call "
+              f"{r['call_ms']}) "
               f"plain_ms {r['plain_ms']} (call {r['plain_call_ms']}) "
               f"library_ms {r['library_ms']} (call {r['library_call_ms']})"
               f" bound_ms {r['bound_ms']} ({r['bound_by']})")
@@ -623,12 +633,12 @@ def main() -> int:
         check(canon(rrows) == canon(rows), f"{name}: row engine")
         warm = sorted(times[1:])
         busy = selfcheck.device_ms(
-            lambda: query.run_query(plan, ds, vectorize=True)) / 1e3
+            lambda: query.run_query(plan, ds, vectorize=True))
         med = warm[len(warm) // 2]
-        if busy == 0 and st.kernel_dispatches:
+        if busy is None or (busy == 0 and st.kernel_dispatches):
             idle = "busy not measured: the profiler recorded no kernel"
         else:
-            idle = f"busy_s {busy}, idle share {1 - busy / med}"
+            idle = f"busy_s {busy / 1e3}, idle share {1 - busy / 1e3 / med}"
         print(f"query {name}: rows {len(rows)} cold_s {times[0]} "
               f"warm_s_median {med} (host clock to synchronize; "
               f"{WARM_REPEATS} warm runs) warm device {idle} "
@@ -676,6 +686,7 @@ def main() -> int:
                  "launches_fuzzy": fuzzy_counts[name],
                  "launches_serve": serve_counts[name],
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                 "ms_timer": r["ms_timer"],
                  "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                  "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                  "call_ms": r["call_ms"], "plain_call_ms": r["plain_call_ms"],

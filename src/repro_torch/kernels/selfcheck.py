@@ -14,7 +14,9 @@ Two times are taken per call, with the L2 cache flushed before each call
 (the main path meets its operands cold): ``ms``, the device time of the
 kernels the call runs (CUDA kernel, memset and copy durations from
 ``torch.profiler``, less the flush's own), and ``call_ms``, CUDA events
-around the Python call, which adds the host's launch overhead.  The bound
+around the Python call, which adds the host's launch overhead.  Where the
+profiler records no device time at all, ``ms`` is the CUDA-event time and
+the case's ``ms_timer`` reads ``cuda_events``.  The bound
 is the least time the card could take: the bytes the function must move
 (each input read once, each output written once) over device memory
 bandwidth, or its scalar operations over the non-tensor-core rate,
@@ -40,7 +42,7 @@ __all__ = ["KERNELS", "SUM_RTOL", "MODEL_RTOL", "BF16_RTOL",
            "launch_counts", "reset_launch_counts", "k1_case", "k2_case",
            "k3_case", "k4_case", "k5_case", "k6_case", "a7_case", "k7_case",
            "k8_case", "k9_case", "main_path_cases", "serve_cases",
-           "run_case", "device_ms"]
+           "run_case", "device_ms", "profiler_works"]
 
 # H100 SXM (NVIDIA data sheet): HBM3 bandwidth and the FP32 rate outside
 # the tensor cores, the rate used for the kernels' scalar integer
@@ -538,35 +540,70 @@ def _flush() -> None:
     _FLUSH[0].zero_()
 
 
-def device_ms(fn: Callable[[], Any], iters: int = 1) -> float:
-    """Device time of ``fn``'s CUDA work per call: kernel, memset and
-    memcpy durations recorded by ``torch.profiler`` (CUPTI); 0 when
-    ``fn`` ran nothing on the device."""
-    from torch.profiler import ProfilerActivity, profile
+# whether torch.profiler sees the card: CUPTI records nothing where another
+# tracer holds it or its library is missing; then times come from CUDA
+# events alone (None until the first probe)
+_PROFILER: List[Optional[bool]] = [None]
+_FLUSH_RANGE = "selfcheck.flush"
+
+
+def _profiled_us(fn: Callable[[], Any], iters: int, flush: bool = False
+                 ) -> Tuple[float, float]:
+    """Device µs of the kernels, memsets and copies ``fn`` runs over
+    ``iters`` calls, recorded by ``torch.profiler`` (CUPTI), and of the
+    L2 flushes made before each call when ``flush``.  Each flush runs in
+    a named range, which the profiler also records on the device's
+    timeline: those spans are the flushes' time and come off the total of
+    the same run.  (Summing the device time it links to the range's CPU
+    side counts the first flush twice.)"""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    activities = [ProfilerActivity.CUDA]
+    if flush:
+        activities.append(ProfilerActivity.CPU)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
+    with profile(activities=activities) as prof:
         for _ in range(iters):
+            if flush:
+                with record_function(_FLUSH_RANGE):
+                    _flush()
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages())
-    return us / 1e3 / iters
+    device = flushes = 0.0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            if e.name == _FLUSH_RANGE:
+                flushes += e.device_time_total
+            else:
+                device += e.device_time_total
+    return device - flushes, flushes
+
+
+def profiler_works() -> bool:
+    """True when ``torch.profiler`` records the L2 flush's device time."""
+    if _PROFILER[0] is None:
+        _PROFILER[0] = _profiled_us(_flush, 1)[0] > 0
+    return bool(_PROFILER[0])
+
+
+def device_ms(fn: Callable[[], Any], iters: int = 1) -> Optional[float]:
+    """Device time of ``fn``'s CUDA work per call: kernel, memset and
+    memcpy durations recorded by ``torch.profiler`` (CUPTI); 0 when
+    ``fn`` ran nothing on the device, None when the profiler cannot see
+    the device."""
+    if not profiler_works():
+        return None
+    return _profiled_us(fn, iters)[0] / 1e3 / iters
 
 
 def _time_ms(fn: Callable[[], Any], iters: int, warmup: int = 2
-             ) -> Dict[str, float]:
-    """Per call, L2 flushed before each: device time (profiler, flush
-    subtracted) and CUDA-event time around the call."""
+             ) -> Dict[str, Any]:
+    """Per call, L2 flushed before each: device time (profiler, the
+    flushes' own time subtracted) and CUDA-event time around the call.
+    Where the profiler records nothing, ``ms`` is the CUDA-event time and
+    ``timer`` says so."""
     for _ in range(warmup):
         fn()
-    flush_ms = device_ms(_flush, iters)
-    if flush_ms <= 0:
-        raise RuntimeError("torch.profiler recorded no device time")
-
-    def flushed():
-        _flush()
-        fn()
-    dev = device_ms(flushed, iters) - flush_ms
     torch.cuda.synchronize()
     pairs = []
     for _ in range(iters):
@@ -579,7 +616,12 @@ def _time_ms(fn: Callable[[], Any], iters: int, warmup: int = 2
         pairs.append((s, e))
     torch.cuda.synchronize()
     call = sum(s.elapsed_time(e) for s, e in pairs) / iters
-    return {"ms": max(dev, 0.0), "call_ms": call}
+    if profiler_works():
+        dev, flushes = _profiled_us(fn, iters, flush=True)
+        if dev > 0 and flushes > 0:
+            return {"ms": dev / 1e3 / iters, "call_ms": call,
+                    "timer": "profiler"}
+    return {"ms": call, "call_ms": call, "timer": "cuda_events"}
 
 
 def run_case(case: Dict[str, Any], iters: int = 20, timed: bool = True
@@ -609,6 +651,7 @@ def run_case(case: Dict[str, Any], iters: int = 20, timed: bool = True
     if timed:
         t = _time_ms(case["run"], iters)
         out["ms"], out["call_ms"] = t["ms"], t["call_ms"]
+        out["ms_timer"] = t["timer"]
         t = _time_ms(case["plain"], max(3, iters // 4))
         out["plain_ms"], out["plain_call_ms"] = t["ms"], t["call_ms"]
         out["library_ms"] = out["library_call_ms"] = None

@@ -244,6 +244,21 @@ def test_serve_path_shapes(dev, i):
     assert r["ok"], r
 
 
+@pytest.mark.parametrize("profiler", [True, False])
+def test_timing_with_and_without_the_profiler(dev, monkeypatch, profiler):
+    """A timed case gives a positive kernel time whether or not
+    torch.profiler sees the card: without it (CUPTI held by another
+    tracer), ``ms`` comes from CUDA events and says so."""
+    if profiler and not SC.profiler_works():
+        pytest.skip("torch.profiler records no device time on this card")
+    monkeypatch.setattr(SC, "_PROFILER", [None if profiler else False])
+    r = SC.run_case(SC.k7_case(4096, 8192, seed=1, dev=dev), iters=3)
+    assert r["ok"], r
+    assert r["ms_timer"] == ("profiler" if profiler else "cuda_events")
+    assert r["ms"] > 0 and r["plain_ms"] > 0 and r["library_ms"] > 0, r
+    assert (SC.device_ms(lambda: None) is None) is not profiler
+
+
 @pytest.mark.parametrize("arch", ["deepseek-67b", "starcoder2-3b"])
 def test_model_path_on_card_equals_cpu(dev, arch):
     """Reduced prefill and tiered decode (with flushes and merges) on the
