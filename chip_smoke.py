@@ -28,7 +28,8 @@ path on one CUDA device and checks them:
               the LSM-tiered cache (K7, K9); checks prefill-decode
               consistency, flat against tiered logits at every step, the
               LSM counters and the launch counts
-  5. a ``kernels`` JSON line, the card line, and the ``ok`` JSON line last
+  5. a ``kernels`` JSON line (K7 and K9 with the cluster size each serve
+     shape launched with), the card line, and the ``ok`` JSON line last
 
 Usage:  python3 chip_smoke.py [--messages 2000000] [--users 200000]
                               [--partitions 4] [--flush-threshold 65536]
@@ -490,7 +491,13 @@ def serve_phase(seed):
               f"busy {busy / PROFILED_STEPS} s, idle share "
               f"{1 - busy / wall}; top device time per step: "
               + "; ".join(f"{k[:70]} {us / PROFILED_STEPS / 1e3} ms x"
-                          f"{n // PROFILED_STEPS}" for us, k, n in top))
+                          f"{n // PROFILED_STEPS}" for us, k, n in top[:6]))
+        for kname, tag in (("K9", "decode_partial"), ("K7", "rmsnorm_")):
+            mine = [(us, n) for us, k, n in top if tag in k]
+            print(f"serve profile {name}: {kname} "
+                  f"{sum(u for u, _ in mine) / PROFILED_STEPS / 1e3} ms a "
+                  f"step over {sum(n for _, n in mine) // PROFILED_STEPS} "
+                  f"launches")
     del params, pre, runs, oracle
     torch.cuda.empty_cache()
     return total
@@ -500,8 +507,9 @@ PROFILED_STEPS = 4
 
 
 def _profile_decode(serve, params, cfg, cache, first, pos, steps):
-    """(host s, device busy s, top kernels) of ``steps`` decode steps
-    under torch.profiler; top entries are (device us, name, calls)."""
+    """(host s, device busy s, kernels by device time) of ``steps``
+    decode steps under torch.profiler; entries are (device us, name,
+    calls)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -513,7 +521,7 @@ def _profile_decode(serve, params, cfg, cache, first, pos, steps):
     rows = sorted(((e.self_device_time_total, e.key, e.count)
                    for e in prof.key_averages()
                    if e.self_device_time_total > 0), reverse=True)
-    return wall, sum(r[0] for r in rows) / 1e6, rows[:6]
+    return wall, sum(r[0] for r in rows) / 1e6, rows
 
 
 def _leaves(tree):
@@ -594,7 +602,8 @@ def main() -> int:
               f"{r['call_ms']}) "
               f"plain_ms {r['plain_ms']} (call {r['plain_call_ms']}) "
               f"library_ms {r['library_ms']} (call {r['library_call_ms']})"
-              f" bound_ms {r['bound_ms']} ({r['bound_by']})")
+              f" bound_ms {r['bound_ms']} ({r['bound_by']})"
+              + (f" cluster {r['cluster']}" if "cluster" in r else ""))
         check(r["ok"], f"{r['kernel']} [{r['label']}] disagrees with its "
                        f"plain version (max_abs_err {r['max_abs_err']})")
         results.setdefault(r["kernel"], []).append(r)
@@ -692,6 +701,9 @@ def main() -> int:
                  "call_ms": r["call_ms"], "plain_call_ms": r["plain_call_ms"],
                  "library_call_ms": r["library_call_ms"],
                  "shape": r["label"]}
+        if "cluster" in r:        # K7, K9: the cluster size each case used
+            entry["cluster"] = {o["label"]: o["cluster"]
+                                for o in results[name]}
         if len(results[name]) > 1:
             entry["other_shapes"] = [
                 {k: o[k] for k in ("label", "max_abs_err", "ms", "call_ms",

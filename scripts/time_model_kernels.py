@@ -1,0 +1,114 @@
+#!/usr/bin/env python3
+"""Time K7 (rmsnorm) and K9 (LSM decode attention) at the serve path's
+shapes on one CUDA device, beside their bounds, for one or two source
+trees.
+
+Usage:  python scripts/time_model_kernels.py [--src DIR [--src DIR]]
+                                              [--iters 50]
+
+Each ``--src`` is a directory holding a ``repro_torch`` package (the
+default is this checkout's ``src``).  Every tree runs in a process of its
+own, which builds its own kernel library; two trees run in turns, A B B A,
+so they are compared on one card in one call.  Each case is checked
+against its plain version and timed two ways, the L2 cold both times:
+``ms``, ``selfcheck.run_case``'s device time after a flush that WRITES
+256 MB (the repository's kernel timing: the call then also pays for
+writing back the ~50 MB of dirty lines the flush leaves in L2), and
+``ms_clean``, the device time of the kernel's own launches (found by name
+in the profiler's trace) after a flush that only READS 256 MB, which
+leaves L2 clean, as a decode step finds it after the weight-reading
+products.  Prints the card line, then one JSON object per (tree, run,
+case).
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+KERNELS = {"rmsnorm": "rmsnorm", "lsm_decode_attention": "decode_partial"}
+
+
+def clean_ms(fn, name: str, iters: int) -> float:
+    """Device ms a call of the kernels whose names contain ``name``,
+    each call after a read-only sweep of 256 MB."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    sweep = torch.zeros(64 << 20, dtype=torch.int32, device="cuda")
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            sweep.sum()
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in prof.events() if name in e.name)
+    return us / 1e3 / iters
+
+
+def one(src: str, run: int, iters: int) -> int:
+    sys.path.insert(0, src)
+    import torch
+    from repro_torch.kernels import ops, selfcheck
+    if not torch.cuda.is_available():
+        print("time_model_kernels: no CUDA device", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    lib = ops.lib()
+    occ = {}
+    if hasattr(lib, "rt_decode_partial_clusters"):
+        f = lib.rt_decode_partial_clusters
+        f.restype = ctypes.c_int
+        for dt, name in ((0, "float32"), (1, "bfloat16")):
+            for c in (1, 8):
+                out = ctypes.c_int(0)
+                rc = f(dt, 128, 8, c, ctypes.byref(out))
+                occ[f"{name} C={c}"] = out.value if rc == 0 else f"error {rc}"
+    for case in selfcheck.serve_cases(dev):
+        if case["kernel"] not in KERNELS:
+            continue
+        r = selfcheck.run_case(case, iters=iters)
+        r.update(tree=src, run=run,
+                 ms_clean=clean_ms(case["run"], KERNELS[case["kernel"]],
+                                   iters))
+        print(json.dumps(r), flush=True)
+        if not r["ok"]:
+            return 1
+    if occ:
+        print(json.dumps({"tree": src, "run": run,
+                          "max_active_clusters_G8_hd128": occ}))
+    return 0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--src", action="append")
+    ap.add_argument("--iters", type=int, default=50)
+    ap.add_argument("--one", help=argparse.SUPPRESS)
+    ap.add_argument("--run", type=int, default=0, help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.one:
+        return one(args.one, args.run, args.iters)
+    srcs = [str(Path(s).resolve()) for s in (args.src or [ROOT / "src"])]
+    order = srcs if len(srcs) == 1 else [srcs[0], srcs[1], srcs[1], srcs[0]]
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    print(f"card: {card.stdout.strip()}", flush=True)
+    for i, src in enumerate(order):
+        rc = subprocess.run([sys.executable, __file__, "--one", src,
+                             "--run", str(i), "--iters",
+                             str(args.iters)]).returncode
+        if rc != 0:
+            return rc
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,6 +1,8 @@
 // Shared helpers of the model-stack kernels (K7 rmsnorm, K8 flash
 // attention, K9 LSM decode attention): element loads and stores in the
-// operand's own type, always computing in float32.  The dtype codes are
+// operand's own type, always computing in float32, and the Hopper
+// primitives K7 and K9 split their work with (thread-block cluster
+// barriers and launches, mbarriers).  The dtype codes are
 // mirrored by _DTYPES in kernels/rmsnorm.py, flash_attention.py and
 // lsm_decode_attention.py: change them together.
 #pragma once
@@ -69,5 +71,91 @@ static inline cudaError_t allow_smem(K kernel, int bytes, int* cap) {
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e == cudaSuccess) *cap = bytes;
+  return e;
+}
+
+// ---------------------------------------------------------------------------
+// Hopper (sm_90) primitives, as PTX
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Every thread of every CTA of the cluster arrives (releasing its
+// earlier shared-memory writes to the cluster) / waits for all of them
+// (acquiring theirs).  Warp-uniform: all threads of a warp call it.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+// arrive without ordering memory: "this thread has started"
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// A barrier over the first `threads` threads of the CTA (a multiple of
+// 32), leaving the others free: the consumer warps' __syncthreads when a
+// producer warp runs beside them.
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// mbarrier in shared memory: `count` arrivals (plus any transaction
+// bytes announced by arrive_expect_tx) complete a phase.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+// make the initialised barriers visible to the async proxy (bulk copies)
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+// spin until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" :: "r"(smem_u32(bar)), "r"(parity) : "memory");
+}
+
+// Launch `kernel` on clusters of `cluster` CTAs along x (grid a multiple
+// of it).  Returns the launch's own error: a cluster size the card
+// refuses (above 8 without the non-portable attribute, or more shared
+// memory than a cluster can hold) is reported, never replaced.
+template <typename K, typename... Args>
+static inline cudaError_t launch_clusters(K kernel, int grid, int threads,
+                                          int smem, int cluster,
+                                          cudaStream_t s, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(grid));
+  cfg.blockDim = dim3(static_cast<unsigned>(threads));
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(cluster);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (e != cudaSuccess) cudaGetLastError();   // not left for the next launch
   return e;
 }

@@ -425,6 +425,7 @@ def k7_case(N: int, d: int, seed: int, dev: torch.device,
             "library": lambda: torch.nn.functional.rms_norm(
                 x, (d,), w.to(dtype), eps=1e-5),
             "check": _float_check(_rtol(dtype)),
+            "cluster": RN.cluster_size(N, d, dtype),
             "bytes": 2 * x.numel() * x.element_size() + 4 * d,
             "ops": 4 * N * d}
 
@@ -486,6 +487,8 @@ def k9_case(B: int, H: int, KV: int, hd: int, Sc: int, valid_len: int,
             "plain": lambda: LD.decode_partial_plain(q, k, v, n),
             "library": None,
             "check": _float_check(MODEL_RTOL),
+            "cluster": LD.launch_plan(n, B * KV, RN.DTYPES[dtype], hd,
+                                      H // KV)[0],
             "bytes": 4 * q.numel() + 2 * B * n * KV * hd * k.element_size()
             + 4 * (B * H * hd + 2 * B * H),
             "ops": 4 * B * H * hd * n}
@@ -648,6 +651,8 @@ def run_case(case: Dict[str, Any], iters: int = 20, timed: bool = True
                                  case["ops"] / SCALAR_OPS_PER_S),
            "bound_by": "bytes" if case["bytes"] / HBM_BYTES_PER_S
            >= case["ops"] / SCALAR_OPS_PER_S else "operations"}
+    if "cluster" in case:                 # K7, K9: CTAs a cluster
+        out["cluster"] = case["cluster"]
     if timed:
         t = _time_ms(case["run"], iters)
         out["ms"], out["call_ms"] = t["ms"], t["call_ms"]

@@ -238,6 +238,71 @@ def test_decode_partial_kernel(dev, B, H, KV, hd, Sc, fill, dtype):
     assert r["ok"], r
 
 
+@pytest.mark.parametrize("N", [1, 8, 66, 67])
+@pytest.mark.parametrize("d", [16, 96, 8192, 8196])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_cluster_split(dev, N, d, dtype):
+    """Both sides of the cluster threshold (N <= 66 splits each row over
+    a cluster), rows that split into 8, 4 or 2 slices, and a d whose
+    vectors split into none (one block a row, or the scalar kernel)."""
+    from repro_torch.kernels import rmsnorm as RN
+    case = SC.k7_case(N, d, seed=N * d, dev=dev, dtype=dtype)
+    vw = 16 // (torch.finfo(dtype).bits // 8)
+    want = 1 if N > RN.CLUSTER_MAX_ROWS or d % vw else next(
+        (c for c in (8, 4, 2) if (d // vw) % c == 0), 1)
+    assert case["cluster"] == want
+    r = SC.run_case(case, timed=False)
+    assert r["ok"], r
+
+
+@pytest.mark.parametrize("vl", [0, 1, 63, 64, 65, 200, 513, 897, 1000])
+@pytest.mark.parametrize("H,KV", [(8, 8), (64, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("forced", [0, 8])
+def test_decode_partial_split_boundaries(dev, monkeypatch, vl, H, KV, dtype,
+                                         forced):
+    """K9's cluster split over S_c = 1000 rows (not a multiple of 64), G
+    = 1 and 8: empty, one-row and one-tile components and one row past a
+    tile (C = 1), C = 2 and 5, one row past the last split boundary (897:
+    seven ranks of 128 rows and one of 1) and the whole cache (C = 8);
+    and each with C forced to 8, which leaves ranks empty (1 row: seven;
+    65 rows: six; 513 rows: three)."""
+    from repro_torch.kernels import lsm_decode_attention as LD
+    if forced:
+        monkeypatch.setattr(LD, "launch_plan",
+                            lambda n, *a: LD.split_plan(n, forced))
+        want = forced
+    else:
+        # B * KV = 8 clusters fit on the card at any C: the rows decide
+        want = LD.cluster_size(vl, 8, lambda c: 8)
+        assert want == {0: 1, 1: 1, 63: 1, 64: 1, 65: 1, 200: 2, 513: 5,
+                        897: 8, 1000: 8}[vl]
+    case = SC.k9_case(1, H, KV, 128, 1000, vl, seed=vl + H, dev=dev,
+                      dtype=dtype)
+    assert case["cluster"] == want
+    if vl == 897:
+        assert LD.split_ranges(vl, 8)[-1] == (896, 897)
+    r = SC.run_case(case, timed=False)
+    assert r["ok"], r
+
+
+@pytest.mark.parametrize("C", [0, 16])
+def test_cluster_launch_refused_raises(dev, monkeypatch, C):
+    """A cluster size the kernels do not take (0) or the card refuses
+    (16 without the non-portable attribute) raises: nothing runs the
+    old kernel or the plain version instead."""
+    from repro_torch.kernels import lsm_decode_attention as LD
+    from repro_torch.kernels import rmsnorm as RN
+    monkeypatch.setattr(LD, "launch_plan", lambda n, *a: (C, 64))
+    monkeypatch.setattr(RN, "cluster_size", lambda *a, **k: C)
+    k9 = SC.k9_case(2, 64, 8, 128, 1024, 1024, seed=3, dev=dev)
+    k7 = SC.k7_case(8, 8192, seed=4, dev=dev)
+    for case in (k9, k7):
+        with pytest.raises(RuntimeError):
+            case["run"]()
+        torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("i", range(8))
 def test_serve_path_shapes(dev, i):
     r = SC.run_case(SC.serve_cases(dev)[i], timed=False)

@@ -25,7 +25,9 @@ import repro_torch  # noqa: E402
 from repro.kernels import ops as RO  # noqa: E402
 from repro.kernels import ref as RR  # noqa: E402
 from repro.kernels.lsm_decode_attention import decode_partial as r_partial  # noqa: E402
+from repro_torch.kernels import lsm_decode_attention as LD  # noqa: E402
 from repro_torch.kernels import model_ops as PO  # noqa: E402
+from repro_torch.kernels import rmsnorm as RN  # noqa: E402
 from repro_torch.kernels import ref as PR  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_fwd  # noqa: E402
 from repro_torch.kernels.lsm_decode_attention import decode_partial  # noqa: E402
@@ -241,3 +243,98 @@ def test_merge_partials_associative_and_matches_reference(n_parts, seed):
     _close(a, PR.merge_partials_ref(tparts[::-1]), 1e-5)
     _close(a, RR.merge_partials_ref([tuple(map(jnp.asarray, p))
                                      for p in parts]), 1e-5)
+
+
+# ---------------------------------------------------------------------------
+# K9 and K7 on the card split their work over a thread-block cluster: the
+# split rules and the rank-order merge, on the CPU
+# ---------------------------------------------------------------------------
+
+def _cluster_merge(parts):
+    """The kernel's in-cluster merge of rank states, in rank order: M the
+    largest m, acc and l the sums of each rank's scaled by exp(m_r - M);
+    ranks with m = NEG_INF (empty ranges) are skipped, so exp(NEG_INF -
+    NEG_INF) is never taken."""
+    M = torch.stack([m for _, m, _ in parts]).amax(0)
+    acc = torch.zeros_like(parts[0][0])
+    l = torch.zeros_like(parts[0][2])
+    for a, m, lr in parts:
+        live = m != PR.NEG_INF
+        w = torch.where(live, torch.exp(torch.where(live, m - M, 0.0)), 0.0)
+        acc = acc + w[..., None] * a
+        l = l + w * lr
+    return acc, M, l
+
+
+@pytest.mark.parametrize("vl", [0, 1, 63, 64, 65, 768, 831])
+@pytest.mark.parametrize("C", [1, 2, 8])
+def test_k9_split_and_merge_match_unsplit(vl, C):
+    """The valid rows split into C ranges by the wrapper's rule, each
+    range through decode_partial_ref (an empty one is the (0, NEG_INF, 0)
+    the kernel keeps for it) and merged in rank order, give the unsplit
+    state within 1e-6 of each output's largest magnitude (float32 sums in
+    another order; an empty component's NEG_INF max exactly), no NaN."""
+    rng = np.random.default_rng(vl * 10 + C)
+    B, H, KV, hd, Sc = 2, 16, 2, 16, 832
+    q = torch.from_numpy(rng.normal(size=(B, H, hd)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.normal(size=(B, Sc, KV, hd))
+                             .astype(np.float32)) for _ in range(2))
+    ranges = LD.split_ranges(vl, C)
+    assert len(ranges) == C and ranges[0][0] == 0 and ranges[-1][1] == vl
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    parts = []
+    for lo, hi in ranges:
+        if hi == lo:
+            parts.append((torch.zeros(B, H, hd),
+                          torch.full((B, H), PR.NEG_INF), torch.zeros(B, H)))
+        else:
+            parts.append(PR.decode_partial_ref(q, k[:, lo:hi], v[:, lo:hi],
+                                               hi - lo))
+    got = _cluster_merge(parts)
+    want = PR.decode_partial_ref(q, k, v, vl)
+    for g, w in zip(got, want):
+        assert not torch.isnan(g).any()
+        live = w.abs() < 1e29
+        scale = max(1.0, float(w[live].abs().max()) if live.any() else 0.0)
+        assert float((g - w).abs().max()) <= 1e-6 * scale
+
+
+@pytest.mark.parametrize("vl,pairs,want,last", [
+    (0, 64, 1, (0, 0)),            # an empty L1 slot
+    (63, 64, 1, (0, 63)),          # the tail
+    (64, 64, 1, (0, 64)),          # a full L1 slot
+    (768, 64, 2, (384, 768)),      # the serve path's L2
+    (831, 64, 2, (448, 831)),      # its flat cache
+    (513, 8, 5, (512, 513)),       # ranks of whole tiles, none empty
+    (897, 8, 8, (896, 897)),       # one row past the last boundary
+    (1000, 8, 8, (896, 1000)),
+    (4096, 600, 1, (0, 4096)),     # one CTA a pair already fills the card
+])
+def test_k9_cluster_size_rule(vl, pairs, want, last):
+    """C is the largest that keeps a 64-row tile a rank, leaves no rank
+    empty and lets every pair's cluster be resident (clusters an H100
+    holds of K9 at G = 8, hd = 128, float32: 132 of 1 CTA down to 15 of
+    8)."""
+    resident = {1: 132, 2: 66, 3: 39, 4: 30, 5: 20, 6: 17, 7: 16, 8: 15}
+    C = LD.cluster_size(vl, pairs, resident.get)
+    assert C == want
+    ranges = LD.split_ranges(vl, C)
+    assert ranges[-1] == last and all(hi > lo for lo, hi in ranges[:-1])
+    assert all(lo % LD.TILE_ROWS == 0 for lo, _ in ranges)
+
+
+@pytest.mark.parametrize("N,d,dtype,aligned,want", [
+    (8, 8192, torch.float32, True, 8),       # a decode step
+    (66, 8192, torch.float32, True, 8),      # the threshold
+    (67, 8192, torch.float32, True, 1),      # past it
+    (4096, 8192, torch.float32, True, 1),    # the prefill
+    (8, 8192, torch.bfloat16, True, 8),
+    (8, 16, torch.float32, True, 4),         # 4 vectors a row
+    (8, 16, torch.bfloat16, True, 2),        # 2 vectors a row
+    (8, 96, torch.bfloat16, True, 4),        # 12 vectors a row
+    (8, 8196, torch.float32, True, 1),       # 2049 vectors: no even split
+    (8, 10001, torch.float32, True, 1),      # not whole vectors
+    (8, 8192, torch.float32, False, 1),      # rows not 16-byte aligned
+])
+def test_k7_cluster_size_rule(N, d, dtype, aligned, want):
+    assert RN.cluster_size(N, d, dtype, aligned) == want
