@@ -29,7 +29,9 @@ path on one CUDA device and checks them:
               consistency, flat against tiered logits at every step, the
               LSM counters and the launch counts
   5. a ``kernels`` JSON line (K7 and K9 with the cluster size each serve
-     shape launched with), the card line, and the ``ok`` JSON line last
+     shape launched with, K8 with its float32 non-tensor bound beside the
+     tensor-core one, K4's launches split by threshold and K6's by caller),
+     the card line, and the ``ok`` JSON line last
 
 Usage:  python3 chip_smoke.py [--messages 2000000] [--users 200000]
                               [--partitions 4] [--flush-threshold 65536]
@@ -252,7 +254,9 @@ def clustered_records(n_records, vocab_size, noise, seed=7):
 
 
 def fuzzy_phase(ds, rec):
-    """Phase 4b: the fuzzy query path on the ingested users."""
+    """Phase 4b: the fuzzy query path on the ingested users.  Returns
+    K6's launches split by caller: the fuzzy selects and probe, and the
+    FuzzyJoins."""
     import torch
     from repro_torch import obs
     from repro_torch.core import algebra, functions
@@ -325,6 +329,8 @@ def fuzzy_phase(ds, rec):
               f"{st.rows_fuzzy_vectorized} rows_index_vectorized "
               f"{st.rows_index_vectorized}; checked against the row "
               f"engine's full scan ({t_scan} s)")
+    k6 = selfcheck.KERNELS["set_intersect_counts"]["wrapper"]
+    k6_selects = k6.launches
     joins = {"table3_tags": (rec["tags"], 0.6),
              "clustered_bitset": (clustered_records(3500, 800, 3), 0.5),
              "clustered_wide_vocab": (clustered_records(3500, 1 << 20, 12),
@@ -347,6 +353,8 @@ def fuzzy_phase(ds, rec):
               f"per-pair loop (host clock)")
     seen = sorted(k for k in columnar_ops._SEEN if k[0] in FUZZY_PATH)
     print(f"fuzzy: kernel shapes seen {seen}")
+    return {"fuzzy_select": k6_selects,
+            "fuzzy_join": k6.launches - k6_selects}
 
 
 # ---------------------------------------------------------------------------
@@ -603,6 +611,8 @@ def main() -> int:
               f"plain_ms {r['plain_ms']} (call {r['plain_call_ms']}) "
               f"library_ms {r['library_ms']} (call {r['library_call_ms']})"
               f" bound_ms {r['bound_ms']} ({r['bound_by']})"
+              + (f" bound_fp32_ms {r['bound_fp32_ms']} (float32 outside "
+                 f"the tensor cores)" if "bound_fp32_ms" in r else "")
               + (f" cluster {r['cluster']}" if "cluster" in r else ""))
         check(r["ok"], f"{r['kernel']} [{r['label']}] disagrees with its "
                        f"plain version (max_abs_err {r['max_abs_err']})")
@@ -656,6 +666,7 @@ def main() -> int:
               f"{st.kernel_dispatches} rows_vectorized {st.rows_vectorized}"
               f" checked against the row engine ({t_row} s) and numpy")
     counts = selfcheck.launch_counts()
+    splits = {"columnar": selfcheck.launch_splits()}
     print(f"main: launches {json.dumps(counts)}")
     for k in COLUMNAR_PATH:
         check(counts[k] > 0, f"kernel {k} never launched on the main path")
@@ -663,8 +674,9 @@ def main() -> int:
     # -- 4b. fuzzy path ----------------------------------------------------
     selfcheck.reset_launch_counts()
     t0 = time.perf_counter()
-    fuzzy_phase(ds, rec)
+    k6_split = fuzzy_phase(ds, rec)
     fuzzy_counts = selfcheck.launch_counts()
+    splits["fuzzy"] = selfcheck.launch_splits()
     print(f"fuzzy: launches {json.dumps(fuzzy_counts)}; phase took "
           f"{time.perf_counter() - t0} s (host clock)")
     for k in FUZZY_PATH:
@@ -704,6 +716,14 @@ def main() -> int:
         if "cluster" in r:        # K7, K9: the cluster size each case used
             entry["cluster"] = {o["label"]: o["cluster"]
                                 for o in results[name]}
+        if "bound_fp32_ms" in r:  # K8: the float32 non-tensor-core bound
+            entry["bound_fp32_ms"] = r["bound_fp32_ms"]
+        if name == "t_occurrence_mask":
+            entry["launches_split"] = {
+                f"{phase} {t}": n for phase, sp in splits.items()
+                for t, n in sp[name].items()}
+        if name == "set_intersect_counts":
+            entry["launches_split"] = k6_split
         if len(results[name]) > 1:
             entry["other_shapes"] = [
                 {k: o[k] for k in ("label", "max_abs_err", "ms", "call_ms",

@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
-"""Time K7 (rmsnorm) and K9 (LSM decode attention) at the serve path's
-shapes on one CUDA device, beside their bounds, for one or two source
-trees.
+"""Time kernels of the port at their main-path shapes on one CUDA device,
+beside their bounds, for one or two source trees: K7 (rmsnorm), K8 (flash
+attention) and K9 (LSM decode attention) at the serve path's shapes
+(``selfcheck.serve_cases``), K2 (fused filter-aggregate) at the columnar
+path's n = 2**19 (``selfcheck.main_path_cases``).
 
 Usage:  python scripts/time_model_kernels.py [--src DIR [--src DIR]]
-                                              [--iters 50]
+            [--kernels rmsnorm,lsm_decode_attention,flash_attention,
+                       fused_filter_aggregate] [--iters 50]
 
 Each ``--src`` is a directory holding a ``repro_torch`` package (the
 default is this checkout's ``src``).  Every tree runs in a process of its
@@ -31,7 +34,10 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-KERNELS = {"rmsnorm": "rmsnorm", "lsm_decode_attention": "decode_partial"}
+# selfcheck kernel name -> a substring of its CUDA kernels' names
+KERNELS = {"rmsnorm": "rmsnorm", "lsm_decode_attention": "decode_partial",
+           "flash_attention": "flash_", "fused_filter_aggregate": "agg_"}
+SERVE = ("rmsnorm", "lsm_decode_attention", "flash_attention")
 
 
 def clean_ms(fn, name: str, iters: int) -> float:
@@ -52,7 +58,7 @@ def clean_ms(fn, name: str, iters: int) -> float:
     return us / 1e3 / iters
 
 
-def one(src: str, run: int, iters: int) -> int:
+def one(src: str, run: int, iters: int, kernels: list) -> int:
     sys.path.insert(0, src)
     import torch
     from repro_torch.kernels import ops, selfcheck
@@ -70,8 +76,12 @@ def one(src: str, run: int, iters: int) -> int:
                 out = ctypes.c_int(0)
                 rc = f(dt, 128, 8, c, ctypes.byref(out))
                 occ[f"{name} C={c}"] = out.value if rc == 0 else f"error {rc}"
-    for case in selfcheck.serve_cases(dev):
-        if case["kernel"] not in KERNELS:
+    cases = selfcheck.serve_cases(dev) \
+        if any(k in SERVE for k in kernels) else []
+    if "fused_filter_aggregate" in kernels:
+        cases += selfcheck.main_path_cases(dev)
+    for case in cases:
+        if case["kernel"] not in kernels:
             continue
         r = selfcheck.run_case(case, iters=iters)
         r.update(tree=src, run=run,
@@ -90,11 +100,17 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", action="append")
     ap.add_argument("--iters", type=int, default=50)
+    ap.add_argument("--kernels", default=",".join(KERNELS),
+                    help="comma-separated selfcheck kernel names")
     ap.add_argument("--one", help=argparse.SUPPRESS)
     ap.add_argument("--run", type=int, default=0, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    kernels = args.kernels.split(",")
+    unknown = set(kernels) - set(KERNELS)
+    if unknown:
+        ap.error(f"unknown kernels {sorted(unknown)}; known: {list(KERNELS)}")
     if args.one:
-        return one(args.one, args.run, args.iters)
+        return one(args.one, args.run, args.iters, kernels)
     srcs = [str(Path(s).resolve()) for s in (args.src or [ROOT / "src"])]
     order = srcs if len(srcs) == 1 else [srcs[0], srcs[1], srcs[1], srcs[0]]
     card = subprocess.run(
@@ -103,8 +119,8 @@ def main() -> int:
     print(f"card: {card.stdout.strip()}", flush=True)
     for i, src in enumerate(order):
         rc = subprocess.run([sys.executable, __file__, "--one", src,
-                             "--run", str(i), "--iters",
-                             str(args.iters)]).returncode
+                             "--run", str(i), "--iters", str(args.iters),
+                             "--kernels", args.kernels]).returncode
         if rc != 0:
             return rc
     return 0

@@ -215,7 +215,9 @@ class ColDesc(ctypes.Structure):
 
 _DT_TAG = {torch.int64: 0, torch.float64: 1, torch.int32: 2}
 _MAX_COLS = 8                       # csrc/common.cuh MAX_COLS
-_AGG_THREADS = 256                  # csrc/filter_aggregate.cu THREADS
+# csrc/filter_aggregate.cu THREADS, RUN (rows a thread takes at a time)
+# and MAX_BLOCKS (the scratch's columns)
+_AGG_THREADS, _AGG_RUN, _AGG_MAX_BLOCKS = 256, 8, 264
 
 
 def _descs(cols: Sequence[Col]) -> ctypes.Array:
@@ -264,27 +266,50 @@ range_mask_cuda.launches = 0
 
 
 def agg_blocks(n: int) -> int:
-    """Grid of K2's partial pass: a function of n only, so the fold order
-    (and every float64 sum) is reproducible at a given n."""
-    return max(1, min(-(-n // _AGG_THREADS), 132 * 4))
+    """Grid of K2's launch: a function of n only, so the fold order (and
+    every float64 sum) is reproducible at a given n.  One run of 8 rows a
+    thread, capped at two blocks an SM (threads then take several)."""
+    return max(1, min(-(-n // (_AGG_RUN * _AGG_THREADS)), _AGG_MAX_BLOCKS))
+
+
+# per (device, stream): K2's partials [1 + 4 MAX_COLS, MAX_BLOCKS] and its
+# ticket, which the kernel leaves at 0; launches on one stream run in order,
+# so they share them
+_AGG_SCRATCH: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _agg_scratch(dev: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    key = (dev.index if dev.index is not None else
+           torch.cuda.current_device(),
+           torch.cuda.current_stream(dev).cuda_stream)
+    if key not in _AGG_SCRATCH:
+        _AGG_SCRATCH[key] = (
+            torch.empty((1 + 4 * _MAX_COLS, _AGG_MAX_BLOCKS),
+                        dtype=torch.int64, device=dev),
+            torch.zeros(1, dtype=torch.int32, device=dev))
+    return _AGG_SCRATCH[key]
 
 
 def filter_aggregate_cuda(pcols: Sequence[Col], acols: Sequence[Col],
                           n: int, dev: torch.device) -> torch.Tensor:
-    """K2 on the card.  Returns the raw int64 result row on the device:
-    ``[count, (valid count, sum, min, max) per aggregate column]`` with
-    float64 slots as raw bits (see :func:`decode_aggregate`)."""
+    """K2 on the card: one launch per ``MAX_COLS`` aggregate columns.
+    Returns the raw int64 result row on the device: ``[count, (valid
+    count, sum, min, max) per aggregate column]`` with float64 slots as
+    raw bits (see :func:`decode_aggregate`).  Operands that are not all
+    16-byte aligned are read row by row."""
     if len(pcols) > _MAX_COLS:
         raise ValueError(f"fused_filter_aggregate takes at most "
                          f"{_MAX_COLS} predicate columns, got {len(pcols)}")
     m = len(acols)
-    blocks = agg_blocks(n)
-    part = torch.empty((blocks, 1 + 4 * _MAX_COLS), dtype=torch.int64,
-                       device=dev)
+    pd, ad = _descs(pcols), _descs(acols)
+    vec = all(c[0].data_ptr() % 16 == 0 and c[1].data_ptr() % 16 == 0
+              for c in list(pcols) + list(acols))
+    part, ticket = _agg_scratch(dev)
     out = torch.empty(1 + 4 * m, dtype=torch.int64, device=dev)
-    f = _fn("rt_filter_aggregate", [_P, _I, _P, _I, _L, _I, _P, _P, _P])
-    rc = f(ctypes.cast(_descs(pcols), _P), len(pcols),
-           ctypes.cast(_descs(acols), _P), m, n, blocks, part.data_ptr(),
+    f = _fn("rt_filter_aggregate",
+            [_P, _I, _P, _I, _L, _I, _I, _P, _P, _P, _P])
+    rc = f(ctypes.cast(pd, _P), len(pcols), ctypes.cast(ad, _P), m, n,
+           agg_blocks(n), int(vec), part.data_ptr(), ticket.data_ptr(),
            out.data_ptr(), _ops.stream(out))
     filter_aggregate_cuda.launches += 1
     _ops.check(rc, "fused_filter_aggregate")

@@ -4,28 +4,43 @@
 // Replaces the TPU kernel repro/kernels/columnar_ops.py:_agg_kernel (host
 // wrapper _agg_pallas), which accumulates f32 partials across a
 // sequential row-block grid in one (8, 128) VMEM tile.  On the H100 the
-// blocks run in parallel and in no order, so the reduction is two
-// launches: every block writes its partials to a [blocks, W] scratch
-// (W = 1 + 4M slots), then one block per slot folds that slot's partials
-// in a fixed tree (thread t takes blocks t, t + 256, ... in order, then
-// the same warp-shuffle and warp fold as the first pass).  Sums are int64
-// or float64 in the column's own type (the exact x64 path, _agg_core); no
-// floating-point atomics are used and every fold order is fixed by n, so
-// a float64 sum comes out bit-identical on every run at a given n.
-// min/max propagate NaN as jnp.min / jnp.max do.
+// blocks run in parallel and in no order; here one launch does the pass
+// and the cross-block fold (one launch per MAX_COLS aggregate columns):
+// every block writes its partial row to a cached [W, MAX_BLOCKS] scratch
+// (W = 1 + 4M slots), fences, and takes a ticket; the block that takes
+// the last ticket folds all partials in block order (warp w folds slots
+// w, w + 8, ...: lane l takes blocks l, l + 32, ... in order, then a
+// fixed shuffle tree) and resets the ticket for the next launch on the
+// stream.  Sums are int64 or float64 in the column's own type (the exact
+// x64 path, _agg_core); no floating-point atomics are used and every fold
+// order is fixed by n (the grid is agg_blocks(n)), so a float64 sum comes
+// out bit-identical on every run at a given n.  min/max propagate NaN as
+// jnp.min / jnp.max do.
 //
-// Bound: memory.  Each row reads (9K + 9M) bytes and the arithmetic is a
-// few compares and adds.  Design: one thread per row, grid-stride, with
-// the per-thread accumulators in registers (the column loop is unrolled
-// to MAX_COLS with a guard, so the arrays never spill to local memory),
-// then a warp-shuffle tree and a fold over the block's warps.
+// Bound: memory.  Each row reads (9K + 9M) bytes (int32 codes 5) and the
+// arithmetic is a few compares and adds.  Design: a warp takes runs of 256
+// rows, lane i rows 64 k + 2 i + e (k < 4, e < 2), so each of a column's 4
+// loads a lane issues is a coalesced warp access: int64 / float64 data as
+// 16-byte vectors (2 rows), int32 codes as 8 bytes, validity as 2 bytes.
+// (A lane of 16 consecutive rows, one 16-byte validity vector, made every
+// data load touch 32 lines and ran 5x the bound.)  A column's 4 loads are
+// issued together: with at most 2 aggregates every column's loads go out
+// before any is evaluated, else the next column's before this one is, so
+// two columns are in flight per thread.  The predicate is evaluated
+// branch-free into a 16-bit row mask; each column's dtype is resolved once
+// a run, not per row; the kernel is templated on the number of aggregate
+// columns NA so only the 1 + 4 NA live accumulators occupy registers.  A
+// run that ends past n, or a call with an operand not 16-byte aligned,
+// loads the same rows one by one.
 #include "common.cuh"
 
 enum { OP_ADD_I = 0, OP_ADD_F = 1, OP_MIN_I = 2, OP_MIN_F = 3,
        OP_MAX_I = 4, OP_MAX_F = 5 };
 
-#define MAX_SLOTS (1 + 4 * MAX_COLS)
 #define THREADS 256
+#define RUN 8                     // rows a thread takes at a time
+#define WRUN (32 * RUN)           // rows a warp takes at a time
+#define MAX_BLOCKS 264            // scratch columns (agg_blocks' cap)
 
 __device__ __forceinline__ int slot_op(const ColTable& a, int s) {
   if (s == 0) return OP_ADD_I;                 // survivor count
@@ -49,116 +64,356 @@ __device__ __forceinline__ int64_t ident(int op) {
   }
 }
 
-__device__ __forceinline__ int64_t combine(int op, int64_t a, int64_t b) {
+__device__ __forceinline__ int64_t add_i(int64_t a, int64_t b) {
+  // two's-complement wrap, like an int64 jnp.sum
+  return static_cast<int64_t>(static_cast<uint64_t>(a) +
+                              static_cast<uint64_t>(b));
+}
+// NaN-propagating min / max of float64 bit patterns (the first NaN wins),
+// as selects
+__device__ __forceinline__ int64_t min_f(int64_t a, int64_t b) {
+  const double x = __longlong_as_double(a), y = __longlong_as_double(b);
+  return x != x ? a : y != y ? b : y < x ? b : a;
+}
+__device__ __forceinline__ int64_t max_f(int64_t a, int64_t b) {
+  const double x = __longlong_as_double(a), y = __longlong_as_double(b);
+  return x != x ? a : y != y ? b : y > x ? b : a;
+}
+
+template <int OP>
+__device__ __forceinline__ int64_t comb(int64_t a, int64_t b) {
+  if constexpr (OP == OP_ADD_I) return add_i(a, b);
+  else if constexpr (OP == OP_ADD_F)
+    return __double_as_longlong(__longlong_as_double(a) +
+                                __longlong_as_double(b));
+  else if constexpr (OP == OP_MIN_I) return b < a ? b : a;
+  else if constexpr (OP == OP_MAX_I) return b > a ? b : a;
+  else if constexpr (OP == OP_MIN_F) return min_f(a, b);
+  else return max_f(a, b);
+}
+
+// Fixed-order warp fold of one slot; the result in lane 0.
+template <int OP>
+__device__ __forceinline__ int64_t warp_fold_t(int64_t v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v = comb<OP>(v, static_cast<int64_t>(__shfl_down_sync(
+                        0xffffffffu, static_cast<long long>(v), off)));
+  return v;
+}
+
+// Fold n <= MAXN values x[0], x[stride], ... in order (one thread), all
+// read before the first is folded; l2: read past L1 (other blocks' data)
+template <int OP, int MAXN>
+__device__ __forceinline__ int64_t seq_fold(const int64_t* x, int n,
+                                            int stride, bool l2) {
+  int64_t v[MAXN];
+#pragma unroll
+  for (int i = 0; i < MAXN; ++i)
+    if (i < n) v[i] = l2 ? __ldcg(x + i * stride) : x[i * stride];
+  int64_t r = v[0];
+#pragma unroll
+  for (int i = 1; i < MAXN; ++i)
+    if (i < n) r = comb<OP>(r, v[i]);
+  return r;
+}
+
+// the op resolved once, outside the fold
+template <int MAXN>
+__device__ __forceinline__ int64_t ordered_fold(int op, const int64_t* x,
+                                                int n, int stride, bool l2) {
   switch (op) {
-    case OP_ADD_I:   // two's-complement wrap, like an int64 jnp.sum
-      return static_cast<int64_t>(static_cast<uint64_t>(a) +
-                                  static_cast<uint64_t>(b));
-    case OP_ADD_F:
-      return __double_as_longlong(__longlong_as_double(a) +
-                                  __longlong_as_double(b));
-    case OP_MIN_I: return b < a ? b : a;
-    case OP_MAX_I: return b > a ? b : a;
-    case OP_MIN_F: {
-      const double x = __longlong_as_double(a), y = __longlong_as_double(b);
-      if (isnan(x)) return a;
-      if (isnan(y)) return b;
-      return y < x ? b : a;
+    case OP_ADD_I: return seq_fold<OP_ADD_I, MAXN>(x, n, stride, l2);
+    case OP_ADD_F: return seq_fold<OP_ADD_F, MAXN>(x, n, stride, l2);
+    case OP_MIN_I: return seq_fold<OP_MIN_I, MAXN>(x, n, stride, l2);
+    case OP_MAX_I: return seq_fold<OP_MAX_I, MAXN>(x, n, stride, l2);
+    case OP_MIN_F: return seq_fold<OP_MIN_F, MAXN>(x, n, stride, l2);
+    default: return seq_fold<OP_MAX_F, MAXN>(x, n, stride, l2);
+  }
+}
+__device__ __forceinline__ int64_t warp_fold(int op, int64_t v) {
+  switch (op) {
+    case OP_ADD_I: return warp_fold_t<OP_ADD_I>(v);
+    case OP_ADD_F: return warp_fold_t<OP_ADD_F>(v);
+    case OP_MIN_I: return warp_fold_t<OP_MIN_I>(v);
+    case OP_MAX_I: return warp_fold_t<OP_MAX_I>(v);
+    case OP_MIN_F: return warp_fold_t<OP_MIN_F>(v);
+    default: return warp_fold_t<OP_MAX_F>(v);
+  }
+}
+
+// One column's rows of a lane's run: row 64 k + e of the lane is bit
+// 2 k + e, its two validity bytes are v[k], the values are x[2 k + e] as
+// int64 (int64, float64 bits, or int32 codes widened).
+struct Run {
+  uint32_t v[RUN / 2];
+  int64_t x[RUN];
+};
+
+// 4 validity bytes -> 4 bits (byte i nonzero -> bit i)
+__device__ __forceinline__ uint32_t nib(uint32_t w) {
+  const uint32_t nz = (((w & 0x7f7f7f7fu) + 0x7f7f7f7fu) | w) & 0x80808080u;
+  return ((nz >> 7) * 0x01020408u) >> 24;
+}
+// v[2 q] and v[2 q + 1] hold the bytes of bits 4 q .. 4 q + 3
+__device__ __forceinline__ uint32_t valid_bits(const Run& r) {
+  uint32_t bits = 0;
+#pragma unroll
+  for (int q = 0; q < RUN / 4; ++q)
+    bits |= nib(r.v[2 * q] | (r.v[2 * q + 1] << 16)) << (4 * q);
+  return bits;
+}
+
+__device__ __forceinline__ int64_t lo_hi(uint32_t lo, uint32_t hi) {
+  return static_cast<int64_t>(static_cast<uint64_t>(lo) |
+                              (static_cast<uint64_t>(hi) << 32));
+}
+
+// Issue the loads of column c's rows of the lane's run (its first row
+// `base`, rows base + 64 k + e); `vec`: the whole run lies below n and every
+// operand is 16-byte aligned, else the rows below n load one by one.
+__device__ __forceinline__ void load_run(const ColDesc& c, int64_t base,
+                                         int64_t n, bool vec, Run& r) {
+  if (vec) {
+#pragma unroll
+    for (int k = 0; k < RUN / 2; ++k)
+      r.v[k] = __ldg(reinterpret_cast<const unsigned short*>(
+          c.valid + base + 64 * k));
+    if (c.dtype == DT_I32) {
+#pragma unroll
+      for (int k = 0; k < RUN / 2; ++k) {
+        const uint2 w = __ldg(reinterpret_cast<const uint2*>(
+            static_cast<const int32_t*>(c.data) + base + 64 * k));
+        r.x[2 * k] = static_cast<int32_t>(w.x);
+        r.x[2 * k + 1] = static_cast<int32_t>(w.y);
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < RUN / 2; ++k) {
+        const uint4 w = __ldg(reinterpret_cast<const uint4*>(
+            static_cast<const int64_t*>(c.data) + base + 64 * k));
+        r.x[2 * k] = lo_hi(w.x, w.y);
+        r.x[2 * k + 1] = lo_hi(w.z, w.w);
+      }
     }
-    default: {  // OP_MAX_F
-      const double x = __longlong_as_double(a), y = __longlong_as_double(b);
-      if (isnan(x)) return a;
-      if (isnan(y)) return b;
-      return y > x ? b : a;
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < RUN / 2; ++k) {
+    r.v[k] = 0u;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int64_t row = base + 64 * k + e;
+      const bool in = row < n;
+      r.v[k] |= (in ? static_cast<uint32_t>(c.valid[row]) : 0u) << (8 * e);
+      r.x[2 * k + e] = !in ? 0
+          : c.dtype == DT_I32
+              ? static_cast<int64_t>(static_cast<const int32_t*>(c.data)[row])
+              : static_cast<const int64_t*>(c.data)[row];
     }
   }
 }
 
-__device__ __forceinline__ int64_t load_bits(const ColDesc& d, int64_t i) {
-  if (d.dtype == DT_I32)
-    return static_cast<int64_t>(static_cast<const int32_t*>(d.data)[i]);
-  return static_cast<const int64_t*>(d.data)[i];   // int64 or f64 bits
+// Rows of the run that are valid and inside [lo, hi] (NaN fails both
+// compares, as in x64 jnp)
+__device__ __forceinline__ uint32_t pred_bits(const ColDesc& c,
+                                              const Run& r) {
+  uint32_t in = 0;
+  if (c.dtype == DT_F64) {
+#pragma unroll
+    for (int i = 0; i < RUN; ++i) {
+      const double x = __longlong_as_double(r.x[i]);
+      in |= static_cast<uint32_t>(x >= c.lo_f && x <= c.hi_f) << i;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < RUN; ++i)
+      in |= static_cast<uint32_t>(r.x[i] >= c.lo_i && r.x[i] <= c.hi_i) << i;
+  }
+  return in & valid_bits(r);
 }
 
-// Fixed-order block fold of one slot: warp-shuffle tree, then warp 0's
-// lanes fold the eight warp results in warp order.  Result in thread 0.
-__device__ __forceinline__ int64_t block_fold(int op, int64_t v,
-                                              int64_t* sh) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int off = 16; off > 0; off >>= 1)
-    v = combine(op, v, static_cast<int64_t>(__shfl_down_sync(
-                           0xffffffffu, static_cast<long long>(v), off)));
-  if (lane == 0) sh[warp] = v;
-  __syncthreads();
-  int64_t r = sh[0];
-  if (threadIdx.x == 0)
-    for (int w = 1; w < THREADS / 32; ++w) r = combine(op, r, sh[w]);
-  __syncthreads();
-  return r;
+// Fold the rows of `sel` into one column's (count, sum, min, max), as
+// selects: a row outside `sel` adds 0 and meets the min/max identities
+__device__ __forceinline__ void agg_run(const ColDesc& c, const Run& r,
+                                        uint32_t sel, int64_t* acc) {
+  sel &= valid_bits(r);
+  acc[0] += __popc(sel);
+  if (c.dtype == DT_F64) {
+    double s = __longlong_as_double(acc[1]);
+#pragma unroll
+    for (int i = 0; i < RUN; ++i) {
+      const bool ok = (sel >> i) & 1u;
+      s += ok ? __longlong_as_double(r.x[i]) : 0.0;
+      acc[2] = min_f(acc[2], ok ? r.x[i] : ident(OP_MIN_F));
+      acc[3] = max_f(acc[3], ok ? r.x[i] : ident(OP_MAX_F));
+    }
+    acc[1] = __double_as_longlong(s);
+  } else {
+#pragma unroll
+    for (int i = 0; i < RUN; ++i) {
+      const bool ok = (sel >> i) & 1u;
+      acc[1] = add_i(acc[1], ok ? r.x[i] : 0);
+      acc[2] = ok && r.x[i] < acc[2] ? r.x[i] : acc[2];
+      acc[3] = ok && r.x[i] > acc[3] ? r.x[i] : acc[3];
+    }
+  }
 }
 
+// One launch: every block folds its runs and writes its partial row
+// part[s * MAX_BLOCKS + block]; the last block to finish folds them all
+// into out (slot 0 to out[0], aggregate column j's four slots to
+// out[1 + 4 * (col_base + j) ...]).
+template <int NA>
 __global__ void __launch_bounds__(THREADS)
-agg_partial_kernel(ColTable p, ColTable a, int64_t n, int64_t* part) {
-  const int W = 1 + 4 * a.n;
-  int64_t acc[MAX_SLOTS];
+agg_kernel(ColTable p, ColTable a, int64_t n, int vec, int64_t* part,
+           unsigned int* ticket, int col_base, int64_t* out) {
+  constexpr int W = 1 + 4 * NA;
+  int64_t cnt = 0;
+  int64_t acc[NA > 0 ? NA : 1][4];
 #pragma unroll
-  for (int s = 0; s < MAX_SLOTS; ++s)
-    acc[s] = ident(slot_op(a, s < W ? s : 0));
-
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                   threadIdx.x;
-       i < n; i += stride) {
-    if (!row_ok(p, i)) continue;
-    acc[0] += 1;
+  for (int j = 0; j < NA; ++j) {
+    const bool fl = a.c[j].dtype == DT_F64;
+    acc[j][0] = 0;
+    acc[j][1] = 0;
+    acc[j][2] = ident(fl ? OP_MIN_F : OP_MIN_I);
+    acc[j][3] = ident(fl ? OP_MAX_F : OP_MAX_I);
+  }
+  const int k = p.n;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t wruns = (n + WRUN - 1) / WRUN;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * (THREADS / 32);
+  for (int64_t wr = static_cast<int64_t>(blockIdx.x) * (THREADS / 32) + warp;
+       wr < wruns; wr += stride) {
+    const int64_t base = wr * WRUN + 2 * lane;   // the lane's first row
+    const bool fast = vec && wr * WRUN + WRUN <= n;
+    uint32_t mask = 0;
 #pragma unroll
-    for (int j = 0; j < MAX_COLS; ++j) {
-      if (j < a.n && a.c[j].valid[i]) {
-        const int64_t x = load_bits(a.c[j], i);
-        acc[1 + 4 * j] += 1;
-        acc[2 + 4 * j] = combine(slot_op(a, 2 + 4 * j), acc[2 + 4 * j], x);
-        acc[3 + 4 * j] = combine(slot_op(a, 3 + 4 * j), acc[3 + 4 * j], x);
-        acc[4 + 4 * j] = combine(slot_op(a, 4 + 4 * j), acc[4 + 4 * j], x);
+    for (int b = 0; b < RUN; ++b)
+      mask |= static_cast<uint32_t>(base + 64 * (b >> 1) + (b & 1) < n) << b;
+    if constexpr (NA <= 2) {
+      // every column in flight at once: the aggregates first, then the
+      // predicates two at a time (pb[c & 1])
+      Run ab[NA > 0 ? NA : 1], pb[2];
+#pragma unroll
+      for (int j = 0; j < NA; ++j) load_run(a.c[j], base, n, fast, ab[j]);
+      if (k > 0) load_run(p.c[0], base, n, fast, pb[0]);
+#pragma unroll
+      for (int c = 0; c < MAX_COLS; ++c) {
+        if (c < k) {
+          if (c + 1 < k)
+            load_run(p.c[c + 1], base, n, fast, pb[(c + 1) & 1]);
+          mask &= pred_bits(p.c[c], pb[c & 1]);
+        }
+      }
+      cnt += __popc(mask);
+#pragma unroll
+      for (int j = 0; j < NA; ++j) agg_run(a.c[j], ab[j], mask, acc[j]);
+    } else {
+      // predicate c's run sits in pb[c & 1], aggregate j's in ab[j & 1]
+      // (both unrolled, so no run is copied); each column's successor is
+      // issued before the column is evaluated
+      Run pb[2], ab[2];
+      if (k > 0) load_run(p.c[0], base, n, fast, pb[0]);
+      else load_run(a.c[0], base, n, fast, ab[0]);
+#pragma unroll
+      for (int c = 0; c < MAX_COLS; ++c) {
+        if (c < k) {
+          if (c + 1 < k)
+            load_run(p.c[c + 1], base, n, fast, pb[(c + 1) & 1]);
+          else
+            load_run(a.c[0], base, n, fast, ab[0]);
+          mask &= pred_bits(p.c[c], pb[c & 1]);
+        }
+      }
+      cnt += __popc(mask);
+#pragma unroll
+      for (int j = 0; j < NA; ++j) {
+        if (j + 1 < NA)
+          load_run(a.c[j + 1], base, n, fast, ab[(j + 1) & 1]);
+        agg_run(a.c[j], ab[j & 1], mask, acc[j]);
       }
     }
   }
 
-  __shared__ int64_t sh[THREADS / 32];
-#pragma unroll
-  for (int s = 0; s < MAX_SLOTS; ++s) {
-    if (s < W) {
-      const int64_t r = block_fold(slot_op(a, s), acc[s], sh);
-      if (threadIdx.x == 0)
-        part[static_cast<int64_t>(blockIdx.x) * W + s] = r;
-    }
+  // block fold: a shuffle tree a slot, then the warps in order
+  __shared__ int64_t sh[THREADS / 32][W];
+  __shared__ bool last;
+  // a column's four slots in one branch on its type, so their shuffle
+  // trees interleave
+  {
+    const int64_t r = warp_fold_t<OP_ADD_I>(cnt);
+    if (lane == 0) sh[warp][0] = r;
   }
+#pragma unroll
+  for (int j = 0; j < NA; ++j) {
+    int64_t r[4];
+    r[0] = warp_fold_t<OP_ADD_I>(acc[j][0]);
+    if (a.c[j].dtype == DT_F64) {
+      r[1] = warp_fold_t<OP_ADD_F>(acc[j][1]);
+      r[2] = warp_fold_t<OP_MIN_F>(acc[j][2]);
+      r[3] = warp_fold_t<OP_MAX_F>(acc[j][3]);
+    } else {
+      r[1] = warp_fold_t<OP_ADD_I>(acc[j][1]);
+      r[2] = warp_fold_t<OP_MIN_I>(acc[j][2]);
+      r[3] = warp_fold_t<OP_MAX_I>(acc[j][3]);
+    }
+    if (lane == 0)
+      for (int f = 0; f < 4; ++f) sh[warp][1 + 4 * j + f] = r[f];
+  }
+  __syncthreads();
+  if (threadIdx.x < W) {
+    const int s = threadIdx.x;
+    part[static_cast<int64_t>(s) * MAX_BLOCKS + blockIdx.x] =
+        ordered_fold<THREADS / 32>(slot_op(a, s), &sh[0][s], THREADS / 32,
+                                   W, false);
+    __threadfence();               // the partial is visible before the ticket
+  }
+  __syncthreads();
+  if (threadIdx.x == 0)
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+
+  // the last block: fold every block's partials in block order (lane l
+  // takes blocks l, l + 32, ... in order, then the warp's tree)
+  __threadfence();
+  const int nb = static_cast<int>(gridDim.x);
+  for (int s = warp; s < W; s += THREADS / 32) {
+    const int op = slot_op(a, s);
+    const int mine = lane < nb ? (nb - lane + 31) / 32 : 0;
+    int64_t v = mine ? ordered_fold<(MAX_BLOCKS + 31) / 32>(
+                           op, part + static_cast<int64_t>(s) * MAX_BLOCKS +
+                                   lane, mine, 32, true)
+                     : ident(op);
+    v = warp_fold(op, v);
+    if (lane == 0) out[s == 0 ? 0 : s + 4 * col_base] = v;
+  }
+  if (threadIdx.x == 0) *ticket = 0u;   // ready for the next launch
 }
 
-// Fold the [blocks, W] partials: block s of the grid folds slot s, thread
-// t taking blocks t, t + THREADS, ... in order.  Slot 0 goes to out[0],
-// column j's four slots to out[1 + 4 * (col_base + j) ...].
-__global__ void __launch_bounds__(THREADS)
-agg_final_kernel(ColTable a, const int64_t* part, int blocks, int col_base,
-                 int64_t* out) {
-  const int W = 1 + 4 * a.n;
-  const int s = blockIdx.x;
-  const int op = slot_op(a, s);
-  int64_t v = ident(op);
-  for (int b = threadIdx.x; b < blocks; b += THREADS)
-    v = combine(op, v, part[static_cast<int64_t>(b) * W + s]);
-  __shared__ int64_t sh[THREADS / 32];
-  const int64_t r = block_fold(op, v, sh);
-  if (threadIdx.x == 0) out[s == 0 ? 0 : s + 4 * col_base] = r;
+template <int NA>
+static void launch_na(const ColTable& p, const ColTable& a, int64_t n,
+                      int vec, int blocks, int64_t* part,
+                      unsigned int* ticket, int col_base, int64_t* out,
+                      cudaStream_t s) {
+  agg_kernel<NA><<<blocks, THREADS, 0, s>>>(p, a, n, vec, part, ticket,
+                                            col_base, out);
 }
 
 // preds: k <= MAX_COLS predicate descriptors; aggs: m aggregate columns
-// (any number, folded MAX_COLS at a time).  part: int64[blocks, 1 + 4 *
-// MAX_COLS] scratch; out: int64[1 + 4m], float slots as raw f64 bits.
+// (any number, one launch per MAX_COLS).  blocks <= MAX_BLOCKS; part:
+// int64[1 + 4 MAX_COLS, MAX_BLOCKS] scratch and ticket: one uint32, 0 between
+// launches (the kernel leaves it 0), both private to the stream; vec: every
+// operand 16-byte aligned.  out: int64[1 + 4m], float slots as raw f64
+// bits.
 extern "C" int rt_filter_aggregate(const ColDesc* preds, int k,
                                    const ColDesc* aggs, int m, int64_t n,
-                                   int blocks, int64_t* part, int64_t* out,
+                                   int blocks, int vec, int64_t* part,
+                                   unsigned int* ticket, int64_t* out,
                                    void* stream) {
-  if (k > MAX_COLS) return static_cast<int>(cudaErrorInvalidValue);
+  if (k > MAX_COLS || blocks < 1 || blocks > MAX_BLOCKS)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   ColTable p;
   p.n = k;
@@ -168,9 +423,25 @@ extern "C" int rt_filter_aggregate(const ColDesc* preds, int k,
     ColTable a;
     a.n = m - g < MAX_COLS ? m - g : MAX_COLS;
     for (int j = 0; j < a.n; ++j) a.c[j] = aggs[g + j];
-    agg_partial_kernel<<<blocks, THREADS, 0, s>>>(p, a, n, part);
-    agg_final_kernel<<<1 + 4 * a.n, THREADS, 0, s>>>(a, part, blocks, g,
-                                                     out);
+    switch (a.n) {
+      case 0: launch_na<0>(p, a, n, vec, blocks, part, ticket, g, out, s);
+        break;
+      case 1: launch_na<1>(p, a, n, vec, blocks, part, ticket, g, out, s);
+        break;
+      case 2: launch_na<2>(p, a, n, vec, blocks, part, ticket, g, out, s);
+        break;
+      case 3: launch_na<3>(p, a, n, vec, blocks, part, ticket, g, out, s);
+        break;
+      case 4: launch_na<4>(p, a, n, vec, blocks, part, ticket, g, out, s);
+        break;
+      case 5: launch_na<5>(p, a, n, vec, blocks, part, ticket, g, out, s);
+        break;
+      case 6: launch_na<6>(p, a, n, vec, blocks, part, ticket, g, out, s);
+        break;
+      case 7: launch_na<7>(p, a, n, vec, blocks, part, ticket, g, out, s);
+        break;
+      default: launch_na<8>(p, a, n, vec, blocks, part, ticket, g, out, s);
+    }
     g += MAX_COLS;
   } while (g < m);
   return static_cast<int>(cudaGetLastError());

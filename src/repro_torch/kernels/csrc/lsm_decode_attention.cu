@@ -67,7 +67,6 @@
 // [B, S, KV, hd] cache, which keeps even a bare stream of these tiles
 // well below the card's rate (PERF.md).
 #include <cooperative_groups.h>
-#include <cuda.h>
 
 #include <mutex>
 #include <type_traits>
@@ -155,16 +154,6 @@ struct Fold {
   }
 };
 
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
-                                            int c0, int c1, int c2, int c3,
-                                            uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
-         "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(smem_u32(bar))
-      : "memory");
-}
 }  // namespace
 
 template <typename T, int HD, int GW>
@@ -408,33 +397,6 @@ __global__ void __launch_bounds__(NT) decode_partial_kernel(
 // ---------------------------------------------------------------------------
 
 namespace {
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the runtime has loaded, so the
-// library does not link libcuda itself
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult res;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res);
-#endif
-    if (e == cudaSuccess && res == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 struct MapKey {
   const void* ptr;
   int dt, B, KV, hd, n;

@@ -1,11 +1,12 @@
 // Shared helpers of the model-stack kernels (K7 rmsnorm, K8 flash
 // attention, K9 LSM decode attention): element loads and stores in the
 // operand's own type, always computing in float32, and the Hopper
-// primitives K7 and K9 split their work with (thread-block cluster
-// barriers and launches, mbarriers).  The dtype codes are
+// primitives they are built from (thread-block cluster barriers and
+// launches, mbarriers, TMA tensor maps and tile loads).  The dtype codes are
 // mirrored by _DTYPES in kernels/rmsnorm.py, flash_attention.py and
 // lsm_decode_attention.py: change them together.
 #pragma once
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -158,4 +159,44 @@ static inline cudaError_t launch_clusters(K kernel, int grid, int threads,
   const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (e != cudaSuccess) cudaGetLastError();   // not left for the next launch
   return e;
+}
+
+// One TMA tile load of a 4-d box at coordinates (c0..c3, innermost first)
+// into shared memory, completing `bytes` on the mbarrier.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2, int c3,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(smem_u32(bar))
+      : "memory");
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime has loaded, so the
+// library does not link libcuda itself (nullptr if the driver lacks it)
+static inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res);
+#endif
+    if (e == cudaSuccess && res == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
 }

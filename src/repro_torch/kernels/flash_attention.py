@@ -16,9 +16,12 @@ out of the projections, with no transpose and no padding.
 
 Masks: ``causal`` with ``q_offset`` (query i sits at position q_offset + i)
 and ``kv_len``, the number of valid keys (the rest of k and v is never
-read).  The reference's ``ops.flash_attention`` lets zero-padded keys into
-the softmax when causal, Sq > Skv and Skv is not a block multiple; this
-port follows the oracle instead (tests/test_torch_model_ops.py).
+read).  The kernel loads K and V by TMA and Q as 16-byte vectors, so q, k
+and v must start on 16 bytes and step by whole 16-byte units along every
+axis of extent above 1; a view that does not raises ``TypeError``.  The
+reference's ``ops.flash_attention`` lets zero-padded keys into the softmax
+when causal, Sq > Skv and Skv is not a block multiple; this port follows
+the oracle instead (tests/test_torch_model_ops.py).
 """
 
 from __future__ import annotations
@@ -34,9 +37,30 @@ from .ref import flash_attention_ref
 from .rmsnorm import DTYPES
 
 __all__ = ["flash_plain", "flash_cuda", "flash_attention_fwd",
-           "fused_layout", "HEAD_DIMS"]
+           "fused_layout", "HEAD_DIMS", "launch_plan"]
 
 HEAD_DIMS = (16, 32, 64, 128)
+_WARPS = 8                     # csrc/flash_attention.cu NWC: 16 rows each
+
+
+def launch_plan(B: int, H: int, KV: int, Sq: int) -> tuple:
+    """(GH, BQ, grid) of K8's launch, a function of the shape alone: a CTA
+    takes GH of a KV head's G = H / KV query heads (the largest of 8, 4, 2,
+    1 dividing G) over BQ = 16 * 8 / GH queries, so its 8 warps hold 16
+    query rows each and every K/V tile it loads serves 128 rows."""
+    G = H // KV
+    GH = next(c for c in (8, 4, 2, 1) if G % c == 0)
+    BQ = 16 * (_WARPS // GH)
+    return GH, BQ, -(-Sq // BQ) * B * KV * (G // GH)
+
+
+def _aligned(t: torch.Tensor) -> bool:
+    """16-byte base and whole 16-byte steps along every axis of extent
+    above 1 (unit stride along the last)."""
+    esz = t.element_size()
+    return (t.data_ptr() % 16 == 0 and t.stride(-1) == 1
+            and all(t.stride(i) * esz % 16 == 0
+                    for i in range(t.dim() - 1) if t.shape[i] > 1))
 
 
 def flash_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -65,22 +89,24 @@ def flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             and k.shape[3] == hd and H % KV == 0
             and q.dtype == k.dtype == v.dtype and q.dtype in DTYPES
             and hd in HEAD_DIMS and 1 <= n <= k.shape[1]
-            and q.stride(3) == 1 and k.stride(3) == 1):
+            and _aligned(q) and _aligned(k) and _aligned(v)):
         raise TypeError("flash_cuda: CUDA float32/bfloat16 q [B, Sq, H, hd] "
                         "and k, v [B, Skv, KV, hd] (same strides, unit "
-                        f"stride along hd, hd in {HEAD_DIMS}, "
-                        "1 <= kv_len <= Skv) expected")
+                        "stride along hd, 16-byte aligned with 16-byte "
+                        f"steps, hd in {HEAD_DIMS}, 1 <= kv_len <= Skv) "
+                        "expected")
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     f = _ops.lib().rt_flash_attention
     f.restype = ctypes.c_int
     I, P = ctypes.c_int, ctypes.c_void_p
     f.argtypes = [P, P, P, P, I, I, I, I, I, I, I, P, P, P, I, I,
-                  ctypes.c_float, P]
+                  ctypes.c_float, I, P]
     qs, ks, os_ = _strides(q), _strides(k), _strides(out)
+    gh = launch_plan(B, H, KV, Sq)[0]
     rc = f(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
            DTYPES[q.dtype], B, H, KV, Sq, n, hd, ctypes.addressof(qs),
            ctypes.addressof(ks), ctypes.addressof(os_), int(bool(causal)),
-           q_offset, 1.0 / math.sqrt(hd), _ops.stream(q))
+           q_offset, 1.0 / math.sqrt(hd), gh, _ops.stream(q))
     flash_cuda.launches += 1
     _ops.check(rc, "flash_attention")
     return out

@@ -145,11 +145,13 @@ def tocc_cuda(segs: Sequence[DevSeg], n: int, n_out: int,
     rc = f(ctypes.cast(descs, ctypes.c_void_p), len(segs), n, n_out,
            threshold, counts.data_ptr(), out.data_ptr(), _ops.stream(out))
     tocc_cuda.launches += 1
+    tocc_cuda.launches_t1 += threshold == 1
     _ops.check(rc, "t_occurrence_mask")
     return out
 
 
 tocc_cuda.launches = 0
+tocc_cuda.launches_t1 = 0           # of them at T = 1 (the columnar probes)
 
 
 def t_occurrence_mask(positions: Union[np.ndarray, List[Segment]], n: int,

@@ -19,8 +19,11 @@ profiler records no device time at all, ``ms`` is the CUDA-event time and
 the case's ``ms_timer`` reads ``cuda_events``.  The bound
 is the least time the card could take: the bytes the function must move
 (each input read once, each output written once) over device memory
-bandwidth, or its scalar operations over the non-tensor-core rate,
-whichever is larger.
+bandwidth, or its operations over the card's rate for them, whichever is
+larger.  Scalar operations count at the non-tensor-core rate; K8, whose
+products run on the tensor cores, also states its tensor-core time
+(``tc_s``) and keeps the float32 non-tensor bound beside it
+(``bound_fp32_ms``).
 """
 
 from __future__ import annotations
@@ -39,7 +42,8 @@ from . import rmsnorm as RN
 from .columnar_ops import _prep_bounds
 
 __all__ = ["KERNELS", "SUM_RTOL", "MODEL_RTOL", "BF16_RTOL",
-           "launch_counts", "reset_launch_counts", "k1_case", "k2_case",
+           "launch_counts", "reset_launch_counts", "launch_splits",
+           "k1_case", "k2_case",
            "k3_case", "k4_case", "k5_case", "k6_case", "a7_case", "k7_case",
            "k8_case", "k9_case", "main_path_cases", "serve_cases",
            "run_case", "device_ms", "profiler_works"]
@@ -49,6 +53,9 @@ __all__ = ["KERNELS", "SUM_RTOL", "MODEL_RTOL", "BF16_RTOL",
 # compares, adds and mins
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
+# dense tensor-core rates (hopper-kernels guide, section 1)
+TF32_FLOPS_PER_S = 495e12
+BF16_FLOPS_PER_S = 989e12
 SUM_RTOL = 1e-9
 # float32 model kernels against their plain versions: the same sums
 # (8192-term squares, 128-term dot products, softmax sums over up to 1,088
@@ -103,13 +110,36 @@ KERNELS = {
 }
 
 
+# launch counters kept beside ``launches`` where a kernel's launches split
+# by case: K4's at T = 1 (the rest are T > 1)
+SPLIT_COUNTERS = {"t_occurrence_mask": "launches_t1"}
+
+
 def launch_counts() -> Dict[str, int]:
     return {k: v["wrapper"].launches for k, v in KERNELS.items()}
 
 
+def launch_splits() -> Dict[str, Dict[str, int]]:
+    """K4's launches split by threshold: {"T=1": .., "T>1": ..}."""
+    w = KERNELS["t_occurrence_mask"]["wrapper"]
+    return {"t_occurrence_mask": {"T=1": w.launches_t1,
+                                  "T>1": w.launches - w.launches_t1}}
+
+
+def _counters() -> Dict[Tuple[str, str], int]:
+    out = {(k, "launches"): v["wrapper"].launches for k, v in KERNELS.items()}
+    for k, attr in SPLIT_COUNTERS.items():
+        out[(k, attr)] = getattr(KERNELS[k]["wrapper"], attr)
+    return out
+
+
+def _set_counters(values: Dict[Tuple[str, str], int]) -> None:
+    for (k, attr), n in values.items():
+        setattr(KERNELS[k]["wrapper"], attr, n)
+
+
 def reset_launch_counts() -> None:
-    for v in KERNELS.values():
-        v["wrapper"].launches = 0
+    _set_counters(dict.fromkeys(_counters(), 0))
 
 
 # ---------------------------------------------------------------------------
@@ -198,6 +228,7 @@ def k2_case(n: int, pred_kinds: List[str], agg_kinds: List[str], seed: int,
             "plain": lambda: CO.filter_aggregate_plain(pcols, acols, n, dev),
             "library": None,
             "compare": lambda got, ref: _agg_compare(got, ref, acols),
+            "pcols": pcols, "acols": acols,
             "bytes": _col_bytes(pcols, n) + _col_bytes(acols, n)
             + 8 * (1 + 4 * len(acols)),
             "ops": (2 * len(pcols) + 4 * len(acols)) * n}
@@ -462,13 +493,19 @@ def k8_case(B: int, H: int, KV: int, Sq: int, Skv: int, hd: int, seed: int,
     # (query, key) pairs the masks leave visible: the work this run needs
     vis = sum(min(n, q_offset + i + 1) if causal else n for i in range(Sq))
     esz = q.element_size()
+    flops = 4 * B * H * hd * vis         # half in S = QK^T, half in PV
+    # the products as the kernel runs them on the tensor cores: float32 as
+    # 3xTF32 (three TF32 products each); bfloat16 S in one bf16 product and
+    # PV as two TF32 products (P split, V exact)
+    tc_s = (3 * flops / TF32_FLOPS_PER_S if dtype == torch.float32 else
+            flops / 2 / BF16_FLOPS_PER_S + flops / TF32_FLOPS_PER_S)
     return {"kernel": "flash_attention", "label": label,
             "run": lambda: FA.flash_cuda(q, k, v, causal, q_offset, n),
             "plain": lambda: FA.flash_plain(q, k, v, causal, q_offset, n),
             "library": library,
             "check": _float_check(_rtol(dtype)),
             "bytes": esz * (2 * B * Sq * H * hd + 2 * B * n * KV * hd),
-            "ops": 4 * B * H * hd * vis}
+            "ops": flops, "tc_s": tc_s}
 
 
 def k9_case(B: int, H: int, KV: int, hd: int, Sc: int, valid_len: int,
@@ -631,7 +668,7 @@ def run_case(case: Dict[str, Any], iters: int = 20, timed: bool = True
              ) -> Dict[str, Any]:
     """Check the kernel against its plain version on the same inputs,
     then (``timed``) time kernel, plain version and library call."""
-    counts0 = launch_counts()
+    counts0 = _counters()
     got = case["run"]()
     torch.cuda.synchronize()
     ref = case["plain"]()
@@ -645,12 +682,15 @@ def run_case(case: Dict[str, Any], iters: int = 20, timed: bool = True
     torch.cuda.synchronize()
     stable = all(torch.equal(a, b)
                  for a, b in zip(_parts(got), _parts(again)))
+    mem_s = case["bytes"] / HBM_BYTES_PER_S
+    ops_s = case.get("tc_s", case["ops"] / SCALAR_OPS_PER_S)
     out = {"kernel": case["kernel"], "label": case["label"],
            "max_abs_err": err, "ok": bool(ok and stable),
-           "bound_ms": 1e3 * max(case["bytes"] / HBM_BYTES_PER_S,
-                                 case["ops"] / SCALAR_OPS_PER_S),
-           "bound_by": "bytes" if case["bytes"] / HBM_BYTES_PER_S
-           >= case["ops"] / SCALAR_OPS_PER_S else "operations"}
+           "bound_ms": 1e3 * max(mem_s, ops_s),
+           "bound_by": "bytes" if mem_s >= ops_s else "operations"}
+    if "tc_s" in case:          # K8: the float32 non-tensor bound beside it
+        out["bound_fp32_ms"] = 1e3 * max(
+            mem_s, case["ops"] / SCALAR_OPS_PER_S)
     if "cluster" in case:                 # K7, K9: CTAs a cluster
         out["cluster"] = case["cluster"]
     if timed:
@@ -664,6 +704,5 @@ def run_case(case: Dict[str, Any], iters: int = 20, timed: bool = True
             t = _time_ms(case["library"], iters)
             out["library_ms"], out["library_call_ms"] = t["ms"], t["call_ms"]
     # checking and timing launches are not main-path launches
-    for k, v in counts0.items():
-        KERNELS[k]["wrapper"].launches = v
+    _set_counters(counts0)
     return out

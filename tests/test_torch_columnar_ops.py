@@ -295,3 +295,11 @@ def test_trace_count_counts_first_sightings_only():
     PK.range_mask([(x.astype(np.float64), np.ones(100, bool), 2, 5)], 100)
     assert PK.trace_count() == t0 + 1   # new dtype: one first sighting
 
+
+@pytest.mark.parametrize("n,want", [(1, 1), (2048, 1), (2049, 2),
+                                    (1 << 19, 256), ((1 << 19) + 3, 257),
+                                    (1 << 22, 264), (1 << 30, 264)])
+def test_k2_grid_rule(n, want):
+    """K2's grid, and so its fold order, is a function of n alone: one
+    8-row run a thread of 256, capped at the scratch's 264 blocks."""
+    assert PK.agg_blocks(n) == want

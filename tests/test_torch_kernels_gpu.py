@@ -225,6 +225,120 @@ def test_flash_attention_kernel(dev, B, H, KV, Sq, Skv, hd, causal,
     assert r["ok"], r
 
 
+def _k8_shape(case, G):
+    """(B, H, KV, Sq, Skv, causal, q_offset, kv_len, fused) of one K8
+    tensor-core case."""
+    from repro_torch.kernels import flash_attention as FA
+    H = 2 * G
+    bq = FA.launch_plan(1, H, 2, 1)[1]
+    return {
+        # Sq, Skv not multiples of 16 or 64; the last query tile ragged
+        "ragged": (2, H, 2, 77, 77, True, 0, None, False),
+        # decode-like rows past an offset, keys cut at kv_len < Skv
+        "offset": (1, H, 2, 40, 150, True, 100, 121, False),
+        "full": (2, H, 2, 50, 100, False, 0, None, False),
+        # the fused layout over two query tiles, the second ragged
+        "fused": (2, H, 2, 2 * bq - 3, 2 * bq - 3, True, 0, None, True),
+    }[case]
+
+
+@pytest.mark.parametrize("case", ["ragged", "offset", "full", "fused"])
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_tensor_cores(dev, case, G, hd, dtype):
+    """K8's tensor-core tiles: every head dim, GQA groups of 1, 4 and 8
+    (a CTA over 1, 4 or 8 heads of a KV head), ragged query and key
+    edges, an offset with kv_len < Skv, full attention and two fused-
+    layout query tiles, float32 (3xTF32) and bfloat16."""
+    B, H, KV, Sq, Skv, causal, q_offset, kv_len, fused = _k8_shape(case, G)
+    r = SC.run_case(SC.k8_case(B, H, KV, Sq, Skv, hd, seed=Sq + hd + G,
+                               dev=dev, causal=causal, q_offset=q_offset,
+                               kv_len=kv_len, fused=fused, dtype=dtype),
+                    timed=False)
+    assert r["ok"], r
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+def test_flash_attention_misaligned_view_raises(dev, which):
+    """A view the TMA and the 16-byte loads cannot take (a base one
+    element past 16 bytes) raises TypeError: nothing falls back."""
+    from repro_torch.kernels import flash_attention as FA
+    shapes = {"q": (1, 24, 4, 64), "k": (1, 24, 2, 64), "v": (1, 24, 2, 64)}
+    t = {n: torch.randn(shp, device=dev) for n, shp in shapes.items()}
+    n = t[which].numel()
+    t[which] = torch.empty(n + 1, device=dev)[1:].view(shapes[which])
+    t[which].normal_()
+    before = FA.flash_cuda.launches
+    with pytest.raises(TypeError):
+        FA.flash_cuda(t["q"], t["k"], t["v"])
+    assert FA.flash_cuda.launches == before
+
+
+def _k2_run(dev, n, preds, aggs, seed, offset=False, reject=False):
+    """A K2 case; ``offset`` moves the first aggregate column (data and
+    validity) one element past 16-byte alignment, ``reject`` gives every
+    predicate an empty range."""
+    import numpy as np
+    case = SC.k2_case(n, preds, aggs, seed=seed, dev=dev)
+    pcols, acols = case["pcols"], case["acols"]
+    if offset:
+        x, v, lo, hi = acols[0]
+        x2 = torch.empty(n + 1, dtype=x.dtype, device=dev)[1:]
+        v2 = torch.empty(n + 1, dtype=v.dtype, device=dev)[1:]
+        x2.copy_(x)
+        v2.copy_(v)
+        acols[0] = (x2, v2, lo, hi)
+    if reject:
+        for j, (x, v, lo, hi) in enumerate(pcols):
+            pcols[j] = (x, v, np.asarray(hi), np.asarray(lo - 1)
+                        if x.dtype != torch.float64 else np.asarray(-np.inf))
+    return case
+
+
+_K2_M9 = ["id", "f64", "ts", "code", "f64", "id", "code", "ts", "f64"]
+
+
+@pytest.mark.parametrize("n", [1, 15, 17, (1 << 19) + 3])
+@pytest.mark.parametrize("preds,aggs,variant", [
+    (["ts", "code"], ["f64", "code"], "aligned"),  # int32 codes, NaN
+    (["ts", "code"], ["f64", "code"], "offset"),
+    (["ts", "code"], ["f64", "code"], "reject"),
+    (["id"], _K2_M9, "aligned"),                   # M = 9: two launches
+    (["id"], _K2_M9, "offset"),
+    (["id"], _K2_M9, "reject"),
+    ([], ["f64"], "aligned"),
+    ([], ["f64"], "offset")])
+def test_filter_aggregate_one_launch(dev, n, preds, aggs, variant):
+    """K2's runs of 16 rows: partial runs at n = 1, 15, 17 and 2**19 + 3,
+    an operand one element off 16-byte alignment (read row by row), every
+    row rejected (count 0, min/max at their identities), NaN in float64
+    aggregates, int32 codes, nine aggregates in two launches; and two
+    calls queued back to back on the stream (one ticket and scratch)
+    giving the same bits."""
+    import math
+    from repro_torch.kernels import columnar_ops as CO
+    case = _k2_run(dev, n, preds, aggs, seed=n + len(aggs),
+                   offset=variant == "offset", reject=variant == "reject")
+    r = SC.run_case(case, timed=False)
+    assert r["ok"], r
+    first = case["run"]()
+    second = case["run"]()                  # queued behind, no sync
+    assert torch.equal(first, second)
+    if variant == "reject":
+        total, per_col = CO.decode_aggregate(first.cpu().numpy(),
+                                             case["acols"])
+        assert total == 0
+        for (s, mn, mx, c), (x, _v, _lo, _hi) in zip(per_col,
+                                                      case["acols"]):
+            assert c == 0 and s == 0
+            if x.dtype == torch.float64:
+                assert (mn, mx) == (math.inf, -math.inf)
+            else:
+                info = torch.iinfo(torch.int64)
+                assert (mn, mx) == (info.max, info.min)
+
+
 @pytest.mark.parametrize("B,H,KV,hd,Sc", [(2, 8, 4, 32, 256),
                                           (3, 6, 2, 16, 384),
                                           (8, 64, 8, 128, 1088)])

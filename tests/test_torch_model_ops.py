@@ -338,3 +338,21 @@ def test_k9_cluster_size_rule(vl, pairs, want, last):
 ])
 def test_k7_cluster_size_rule(N, d, dtype, aligned, want):
     assert RN.cluster_size(N, d, dtype, aligned) == want
+
+
+@pytest.mark.parametrize("B,H,KV,Sq,want", [
+    (8, 64, 8, 512, (8, 16, 2048)),     # the serve prefill, G = 8
+    (1, 512, 64, 512, (8, 16, 2048)),   # the same in the fused layout
+    (2, 8, 2, 77, (4, 32, 12)),         # G = 4
+    (2, 6, 2, 77, (1, 128, 12)),        # G = 3: one head a CTA
+    (2, 12, 2, 77, (2, 64, 24)),        # G = 6
+    (1, 4, 4, 1, (1, 128, 4)),          # MHA, one query
+])
+def test_k8_launch_plan_rule(B, H, KV, Sq, want):
+    """K8's CTA covers GH heads of a KV head over BQ queries (GH * BQ =
+    128 rows, 16 a warp); the plan is a function of the shape alone."""
+    from repro_torch.kernels import flash_attention as FA
+    assert FA.launch_plan(B, H, KV, Sq) == want
+    GH, BQ, _ = want
+    assert GH * BQ == 128 and (H // KV) % GH == 0
+
