@@ -30,7 +30,9 @@ path on one CUDA device and checks them:
               LSM counters and the launch counts
   5. a ``kernels`` JSON line (K7 and K9 with the cluster size each serve
      shape launched with, K8 with its float32 non-tensor bound beside the
-     tensor-core one, K4's launches split by threshold and K6's by caller),
+     tensor-core one, K4's launches split by threshold and route, T > 1
+     on the fuzzy path all by its sorted row-tile kernel, and K6's by
+     caller),
      the card line, and the ``ok`` JSON line last
 
 Usage:  python3 chip_smoke.py [--messages 2000000] [--users 200000]
@@ -682,6 +684,11 @@ def main() -> int:
     for k in FUZZY_PATH:
         check(fuzzy_counts[k] > 0,
               f"kernel {k} never launched on the fuzzy path")
+    # the ngram probes (K4 at T > 1) all took the sorted row-tile kernel
+    k4 = splits["fuzzy"]["t_occurrence_mask"]
+    print(f"fuzzy: K4 launches by threshold and route {json.dumps(k4)}")
+    check(k4["T>1 sorted"] > 0 and k4["T>1 scatter"] == 0,
+          f"fuzzy K4 launches at T > 1 not all by the sorted kernel: {k4}")
     # -- 4c. serve path ----------------------------------------------------
     t0 = time.perf_counter()
     serve_counts = serve_phase(args.seed)

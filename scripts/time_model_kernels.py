@@ -3,11 +3,16 @@
 beside their bounds, for one or two source trees: K7 (rmsnorm), K8 (flash
 attention) and K9 (LSM decode attention) at the serve path's shapes
 (``selfcheck.serve_cases``), K2 (fused filter-aggregate) at the columnar
-path's n = 2**19 (``selfcheck.main_path_cases``).
+path's n = 2**19 and K5 (edit distances) at the fuzzy path's 2**16 names
+(``selfcheck.main_path_cases``), K4 (T-occurrence count) at T > 1: the
+columnar T = 3 case, the 16-tier T = 13 case and the ngram probe's own
+shape at T = 13 and 7 (built here for a tree that predates
+``selfcheck.k4_path_case``).
 
 Usage:  python scripts/time_model_kernels.py [--src DIR [--src DIR]]
             [--kernels rmsnorm,lsm_decode_attention,flash_attention,
-                       fused_filter_aggregate] [--iters 50]
+                       fused_filter_aggregate,t_occurrence_mask,
+                       edit_distances] [--iters 50]
 
 Each ``--src`` is a directory holding a ``repro_torch`` package (the
 default is this checkout's ``src``).  Every tree runs in a process of its
@@ -28,20 +33,64 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import inspect
 import json
 import subprocess
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-# selfcheck kernel name -> a substring of its CUDA kernels' names
-KERNELS = {"rmsnorm": "rmsnorm", "lsm_decode_attention": "decode_partial",
-           "flash_attention": "flash_", "fused_filter_aggregate": "agg_"}
+# selfcheck kernel name -> substrings of the names of its device work (K4's
+# scatter route also clears its count array)
+KERNELS = {"rmsnorm": ("rmsnorm",), "lsm_decode_attention": ("decode_partial",),
+           "flash_attention": ("flash_",), "fused_filter_aggregate": ("agg_",),
+           "t_occurrence_mask": ("tocc_", "Memset"),
+           "edit_distances": ("edit_distance",)}
 SERVE = ("rmsnorm", "lsm_decode_attention", "flash_attention")
+MAIN = ("fused_filter_aggregate", "edit_distances")
 
 
-def clean_ms(fn, name: str, iters: int) -> float:
-    """Device ms a call of the kernels whose names contain ``name``,
+def k4_cases(SC, FO, dev) -> list:
+    """K4 at T > 1: the columnar T = 3 case (scatter in every tree), the
+    16-tier T = 13 case (marked sorted where the tree takes the flag) and
+    the ngram probe's shape at d = 1 and 3, with main_path_cases' seeds."""
+    kw = {"sorted_": True} \
+        if "sorted_" in inspect.signature(SC.k4_case).parameters else {}
+    out = [SC.k4_case(1 << 19, 1 << 19, 3, 4, dev),
+           SC.k4_case(1 << 16, 1 << 20, 13, 9, dev, tiers=16, **kw)]
+    for d in (1, 3):
+        out.append(SC.k4_path_case(d, 5, dev) if hasattr(SC, "k4_path_case")
+                   else k4_path_tuples(SC, FO, d, 5, dev))
+    return out
+
+
+def k4_path_tuples(SC, FO, d: int, seed: int, dev) -> dict:
+    """``selfcheck.k4_path_case`` for a tree whose K4 wrapper takes
+    (positions, start, count, offset) tuples."""
+    import numpy as np
+    import torch
+    from repro_torch.fuzzy.ngram import GRAM_K, GramPostings, query_grams
+    rng = np.random.default_rng(seed)
+    names = [f"User Number {i}"
+             for i in rng.choice(200_000, 50_000, replace=False)]
+    post = GramPostings.from_values(names, GRAM_K)
+    qh, T = query_grams(("name", "ed", "User Number 123", d), GRAM_K)
+    pos = torch.from_numpy(post.positions).to(dev)
+    segs = [(pos, s.start, s.stop - s.start, s.offset)
+            for s in post.hit_segments(qh, 0)]
+    n, n_out = 50_000, 1 << 16
+    flat = torch.cat([t[a:a + c] + off for t, a, c, off in segs])
+    m = int(flat.shape[0])
+    return {"kernel": "t_occurrence_mask",
+            "label": f"ngram d={d} n={n} m={m} segments={len(segs)} T={T}",
+            "run": lambda: FO.tocc_cuda(segs, n, n_out, T),
+            "plain": lambda: FO.tocc_plain(segs, n, n_out, T),
+            "library": lambda: torch.bincount(flat, minlength=n) >= T,
+            "compare": SC._mask_compare, "bytes": 8 * m + n_out, "ops": m}
+
+
+def clean_ms(fn, names: tuple, iters: int) -> float:
+    """Device ms a call of the work whose names contain one of ``names``,
     each call after a read-only sweep of 256 MB."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -54,14 +103,15 @@ def clean_ms(fn, name: str, iters: int) -> float:
             sweep.sum()
             fn()
         torch.cuda.synchronize()
-    us = sum(e.device_time_total for e in prof.events() if name in e.name)
+    us = sum(e.device_time_total for e in prof.events()
+             if any(k in e.name for k in names))
     return us / 1e3 / iters
 
 
 def one(src: str, run: int, iters: int, kernels: list) -> int:
     sys.path.insert(0, src)
     import torch
-    from repro_torch.kernels import ops, selfcheck
+    from repro_torch.kernels import fuzzy_ops, ops, selfcheck
     if not torch.cuda.is_available():
         print("time_model_kernels: no CUDA device", file=sys.stderr)
         return 2
@@ -78,8 +128,11 @@ def one(src: str, run: int, iters: int, kernels: list) -> int:
                 occ[f"{name} C={c}"] = out.value if rc == 0 else f"error {rc}"
     cases = selfcheck.serve_cases(dev) \
         if any(k in SERVE for k in kernels) else []
-    if "fused_filter_aggregate" in kernels:
-        cases += selfcheck.main_path_cases(dev)
+    if any(k in MAIN for k in kernels):
+        cases += [c for c in selfcheck.main_path_cases(dev)
+                  if c["kernel"] in MAIN]
+    if "t_occurrence_mask" in kernels:
+        cases += k4_cases(selfcheck, fuzzy_ops, dev)
     for case in cases:
         if case["kernel"] not in kernels:
             continue

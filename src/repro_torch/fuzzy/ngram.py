@@ -193,9 +193,11 @@ class GramPostings:
         """The same hits as ``hit_positions`` (shifted by ``offset``), as
         one K4 :class:`Segment` per query gram found: slices of this
         postings' own immutable ``positions`` array, so the device pool
-        keeps it resident and a warm probe ships no positions."""
+        keeps it resident and a warm probe ships no positions.  Each slice
+        ascends (``csr_from_pairs`` groups by a stable sort of row-ordered
+        pairs), so it is marked ``sorted``."""
         starts, stops = self._found(query_hashes)
-        return [Segment(self.positions, a, b, offset)
+        return [Segment(self.positions, a, b, offset, sorted=True)
                 for a, b in zip(starts.tolist(), stops.tolist())]
 
 

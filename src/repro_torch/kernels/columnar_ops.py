@@ -162,6 +162,32 @@ def range_mask_plain(cols: Sequence[Col], n: int) -> torch.Tensor:
     return m
 
 
+# float64 sums fold in the reference's order: XLA's CPU backend rewrites a
+# sum over a pow2-padded vector into windows of 32 consecutive values,
+# each summed left to right from 0.0, then the window sums the same way,
+# level by level, until one value is left.  Padding adds +0.0 (a partial
+# that starts at +0.0 never becomes -0.0), so the result is the complete
+# 32-ary tree over the live values, whatever pow2 length they pad to.
+SUM_WINDOW = 32
+
+
+def tree_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum of a float64 vector in the window order above: one elementwise
+    add a window position and level, so every device gives the same
+    bits."""
+    while True:
+        pad = -x.shape[0] % SUM_WINDOW
+        if pad:
+            x = torch.cat([x, x.new_zeros(pad)])
+        w = x.view(-1, SUM_WINDOW)
+        s = x.new_zeros(w.shape[0])
+        for t in range(SUM_WINDOW):
+            s = s + w[:, t]
+        if s.shape[0] == 1:
+            return s[0]
+        x = s
+
+
 def filter_aggregate_plain(pcols: Sequence[Col], acols: Sequence[Col],
                            n: int, dev: torch.device
                            ) -> Tuple[int, List[Tuple]]:
@@ -182,7 +208,8 @@ def filter_aggregate_plain(pcols: Sequence[Col], acols: Sequence[Col],
             x = x.to(torch.int64)
             info = torch.iinfo(torch.int64)
             zero, big, small = 0, info.max, info.min
-        s = torch.where(ok, x, zero).sum().item()
+        s = torch.where(ok, x, zero)
+        s = (tree_sum(s) if x.dtype.is_floating_point else s.sum()).item()
         mn = torch.where(ok, x, big).min().item()
         mx = torch.where(ok, x, small).max().item()
         per_col.append((s, mn, mx, cnt))
@@ -272,22 +299,39 @@ def agg_blocks(n: int) -> int:
     return max(1, min(-(-n // (_AGG_RUN * _AGG_THREADS)), _AGG_MAX_BLOCKS))
 
 
-# per (device, stream): K2's partials [1 + 4 MAX_COLS, MAX_BLOCKS] and its
-# ticket, which the kernel leaves at 0; launches on one stream run in order,
-# so they share them
-_AGG_SCRATCH: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+def tree_node_stride(n: int) -> int:
+    """K2's float64 node array a column: the ceil(n / 1024) sums of 1,024
+    rows, then each upper level of ``tree_sum``'s order (a 32nd of the one
+    below, rounded up)."""
+    total = level = -(-n // SUM_WINDOW ** 2)
+    while level > 1:
+        level = -(-level // SUM_WINDOW)
+        total += level
+    return total
 
 
-def _agg_scratch(dev: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+# per (device, stream): K2's partials [1 + 4 MAX_COLS, MAX_BLOCKS], its
+# ticket, which the kernel leaves at 0, and its float64 node arrays
+# [MAX_COLS, node stride] (grown to the largest n seen); launches on one
+# stream run in order, so they share them
+_AGG_SCRATCH: Dict[Tuple[int, int], List[torch.Tensor]] = {}
+
+
+def _agg_scratch(dev: torch.device, stride: int) -> List[torch.Tensor]:
     key = (dev.index if dev.index is not None else
            torch.cuda.current_device(),
            torch.cuda.current_stream(dev).cuda_stream)
     if key not in _AGG_SCRATCH:
-        _AGG_SCRATCH[key] = (
+        _AGG_SCRATCH[key] = [
             torch.empty((1 + 4 * _MAX_COLS, _AGG_MAX_BLOCKS),
                         dtype=torch.int64, device=dev),
-            torch.zeros(1, dtype=torch.int32, device=dev))
-    return _AGG_SCRATCH[key]
+            torch.zeros(1, dtype=torch.int32, device=dev),
+            torch.empty(0, dtype=torch.float64, device=dev)]
+    got = _AGG_SCRATCH[key]
+    if got[2].numel() < _MAX_COLS * stride:
+        got[2] = torch.empty(_MAX_COLS * stride, dtype=torch.float64,
+                             device=dev)
+    return got
 
 
 def filter_aggregate_cuda(pcols: Sequence[Col], acols: Sequence[Col],
@@ -295,8 +339,9 @@ def filter_aggregate_cuda(pcols: Sequence[Col], acols: Sequence[Col],
     """K2 on the card: one launch per ``MAX_COLS`` aggregate columns.
     Returns the raw int64 result row on the device: ``[count, (valid
     count, sum, min, max) per aggregate column]`` with float64 slots as
-    raw bits (see :func:`decode_aggregate`).  Operands that are not all
-    16-byte aligned are read row by row."""
+    raw bits (see :func:`decode_aggregate`), float64 sums folded in
+    :func:`tree_sum`'s order.  Operands that are not all 16-byte aligned
+    are read row by row."""
     if len(pcols) > _MAX_COLS:
         raise ValueError(f"fused_filter_aggregate takes at most "
                          f"{_MAX_COLS} predicate columns, got {len(pcols)}")
@@ -304,13 +349,14 @@ def filter_aggregate_cuda(pcols: Sequence[Col], acols: Sequence[Col],
     pd, ad = _descs(pcols), _descs(acols)
     vec = all(c[0].data_ptr() % 16 == 0 and c[1].data_ptr() % 16 == 0
               for c in list(pcols) + list(acols))
-    part, ticket = _agg_scratch(dev)
+    stride = tree_node_stride(n)
+    part, ticket, nodes = _agg_scratch(dev, stride)
     out = torch.empty(1 + 4 * m, dtype=torch.int64, device=dev)
     f = _fn("rt_filter_aggregate",
-            [_P, _I, _P, _I, _L, _I, _I, _P, _P, _P, _P])
+            [_P, _I, _P, _I, _L, _I, _I, _P, _P, _P, _P, _L, _P])
     rc = f(ctypes.cast(pd, _P), len(pcols), ctypes.cast(ad, _P), m, n,
            agg_blocks(n), int(vec), part.data_ptr(), ticket.data_ptr(),
-           out.data_ptr(), _ops.stream(out))
+           out.data_ptr(), nodes.data_ptr(), stride, _ops.stream(out))
     filter_aggregate_cuda.launches += 1
     _ops.check(rc, "fused_filter_aggregate")
     return out

@@ -12,10 +12,18 @@
 // w, w + 8, ...: lane l takes blocks l, l + 32, ... in order, then a
 // fixed shuffle tree) and resets the ticket for the next launch on the
 // stream.  Sums are int64 or float64 in the column's own type (the exact
-// x64 path, _agg_core); no floating-point atomics are used and every fold
-// order is fixed by n (the grid is agg_blocks(n)), so a float64 sum comes
-// out bit-identical on every run at a given n.  min/max propagate NaN as
-// jnp.min / jnp.max do.
+// x64 path, _agg_core); no floating-point atomics are used.  A float64
+// sum folds in the reference's own order, so it equals the reference's
+// bits: XLA's CPU backend sums a pow2-padded vector in windows of 32
+// consecutive values, each left to right from 0.0, then the window sums
+// the same way, level by level (kernels/columnar_ops.py:tree_sum, the
+// plain version).  Here each block iteration covers 2,048 rows: the warps
+// stage their masked values in shared memory (a window a row of 33
+// doubles, so 32 readers hit 32 banks), 64 threads sum the 64 windows, two
+// threads the two 1,024-row nodes, which go to a per-column node array;
+// the last block folds the nodes 32 at a time up to the root.  Padding
+// adds +0.0, which changes no partial, so the root is the same at any
+// pow2 n.  min/max propagate NaN as jnp.min / jnp.max do.
 //
 // Bound: memory.  Each row reads (9K + 9M) bytes (int32 codes 5) and the
 // arithmetic is a few compares and adds.  Design: a warp takes runs of 256
@@ -41,6 +49,10 @@ enum { OP_ADD_I = 0, OP_ADD_F = 1, OP_MIN_I = 2, OP_MIN_F = 3,
 #define RUN 8                     // rows a thread takes at a time
 #define WRUN (32 * RUN)           // rows a warp takes at a time
 #define MAX_BLOCKS 264            // scratch columns (agg_blocks' cap)
+#define TREE_W 32                 // the reference's float64 sum window
+#define CHUNK (THREADS / 32 * WRUN)       // rows of one block iteration
+#define CHUNK_WIN (CHUNK / TREE_W)        // its windows
+#define NODE_ROWS (TREE_W * TREE_W)       // rows of a node (two a chunk)
 
 __device__ __forceinline__ int slot_op(const ColTable& a, int s) {
   if (s == 0) return OP_ADD_I;                 // survivor count
@@ -239,16 +251,13 @@ __device__ __forceinline__ void agg_run(const ColDesc& c, const Run& r,
                                         uint32_t sel, int64_t* acc) {
   sel &= valid_bits(r);
   acc[0] += __popc(sel);
-  if (c.dtype == DT_F64) {
-    double s = __longlong_as_double(acc[1]);
+  if (c.dtype == DT_F64) {      // the sum folds in tree order (tree_step)
 #pragma unroll
     for (int i = 0; i < RUN; ++i) {
       const bool ok = (sel >> i) & 1u;
-      s += ok ? __longlong_as_double(r.x[i]) : 0.0;
       acc[2] = min_f(acc[2], ok ? r.x[i] : ident(OP_MIN_F));
       acc[3] = max_f(acc[3], ok ? r.x[i] : ident(OP_MAX_F));
     }
-    acc[1] = __double_as_longlong(s);
   } else {
 #pragma unroll
     for (int i = 0; i < RUN; ++i) {
@@ -260,14 +269,60 @@ __device__ __forceinline__ void agg_run(const ColDesc& c, const Run& r,
   }
 }
 
+// One block iteration's float64 values of one column, a window a row
+// (padded to 33 doubles: the 32 window readers hit 32 banks), and the
+// window sums
+struct TreeSmem {
+  double win[CHUNK_WIN][TREE_W + 1];
+  double wsum[CHUNK_WIN];
+};
+
+// Stage a float64 column's masked values of the block's chunk (rows of
+// `sel` keep theirs, the rest add +0.0), sum its windows and its two
+// nodes, each left to right from 0.0, and store the nodes below n_nodes
+// at nodes[node0], nodes[node0 + 1].  Every thread of the block calls it.
+__device__ __forceinline__ void tree_step(const Run& r, uint32_t sel,
+                                          TreeSmem& ts, int warp, int lane,
+                                          double* nodes, int64_t node0,
+                                          int64_t n_nodes) {
+#ifdef K2_PROBE_NO_TREE              // scripts/probes: no staged windows
+  return;
+#endif
+  sel &= valid_bits(r);
+  __syncthreads();                   // the previous step's readers are done
+#pragma unroll
+  for (int b = 0; b < RUN; ++b) {
+    const int row = warp * WRUN + 64 * (b >> 1) + 2 * lane + (b & 1);
+    ts.win[row / TREE_W][row % TREE_W] =
+        (sel >> b) & 1u ? __longlong_as_double(r.x[b]) : 0.0;
+  }
+  __syncthreads();
+  if (threadIdx.x < CHUNK_WIN) {
+    double s = 0.0;
+#pragma unroll
+    for (int q = 0; q < TREE_W; ++q) s += ts.win[threadIdx.x][q];
+    ts.wsum[threadIdx.x] = s;
+  }
+  __syncthreads();
+  if (threadIdx.x < CHUNK / NODE_ROWS && node0 + threadIdx.x < n_nodes) {
+    double s = 0.0;
+#pragma unroll
+    for (int q = 0; q < TREE_W; ++q) s += ts.wsum[threadIdx.x * TREE_W + q];
+    nodes[node0 + threadIdx.x] = s;
+  }
+}
+
 // One launch: every block folds its runs and writes its partial row
 // part[s * MAX_BLOCKS + block]; the last block to finish folds them all
 // into out (slot 0 to out[0], aggregate column j's four slots to
-// out[1 + 4 * (col_base + j) ...]).
+// out[1 + 4 * (col_base + j) ...]); a float64 column j's 1,024-row node
+// sums go to nodes[j * node_stride ...], whose tail holds the upper levels.
 template <int NA>
 __global__ void __launch_bounds__(THREADS)
 agg_kernel(ColTable p, ColTable a, int64_t n, int vec, int64_t* part,
-           unsigned int* ticket, int col_base, int64_t* out) {
+           unsigned int* ticket, int col_base, int64_t* out, double* nodes,
+           int64_t node_stride) {
+  __shared__ TreeSmem ts;
   constexpr int W = 1 + 4 * NA;
   int64_t cnt = 0;
   int64_t acc[NA > 0 ? NA : 1][4];
@@ -282,9 +337,14 @@ agg_kernel(ColTable p, ColTable a, int64_t n, int vec, int64_t* part,
   const int k = p.n;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int64_t wruns = (n + WRUN - 1) / WRUN;
+  const int64_t n_nodes = (n + NODE_ROWS - 1) / NODE_ROWS;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * (THREADS / 32);
-  for (int64_t wr = static_cast<int64_t>(blockIdx.x) * (THREADS / 32) + warp;
-       wr < wruns; wr += stride) {
+  // every warp of a block runs the same iterations (tree_step syncs the
+  // block); a warp whose run lies past n loads nothing and masks all rows
+  for (int64_t wr0 = static_cast<int64_t>(blockIdx.x) * (THREADS / 32);
+       wr0 < wruns; wr0 += stride) {
+    const int64_t wr = wr0 + warp;
+    const int64_t node0 = wr0 * WRUN / NODE_ROWS;
     const int64_t base = wr * WRUN + 2 * lane;   // the lane's first row
     const bool fast = vec && wr * WRUN + WRUN <= n;
     uint32_t mask = 0;
@@ -308,7 +368,12 @@ agg_kernel(ColTable p, ColTable a, int64_t n, int vec, int64_t* part,
       }
       cnt += __popc(mask);
 #pragma unroll
-      for (int j = 0; j < NA; ++j) agg_run(a.c[j], ab[j], mask, acc[j]);
+      for (int j = 0; j < NA; ++j) {
+        agg_run(a.c[j], ab[j], mask, acc[j]);
+        if (a.c[j].dtype == DT_F64)
+          tree_step(ab[j], mask, ts, warp, lane, nodes + j * node_stride,
+                    node0, n_nodes);
+      }
     } else {
       // predicate c's run sits in pb[c & 1], aggregate j's in ab[j & 1]
       // (both unrolled, so no run is copied); each column's successor is
@@ -332,6 +397,9 @@ agg_kernel(ColTable p, ColTable a, int64_t n, int vec, int64_t* part,
         if (j + 1 < NA)
           load_run(a.c[j + 1], base, n, fast, ab[(j + 1) & 1]);
         agg_run(a.c[j], ab[j & 1], mask, acc[j]);
+        if (a.c[j].dtype == DT_F64)
+          tree_step(ab[j & 1], mask, ts, warp, lane,
+                    nodes + j * node_stride, node0, n_nodes);
       }
     }
   }
@@ -367,7 +435,9 @@ agg_kernel(ColTable p, ColTable a, int64_t n, int vec, int64_t* part,
     part[static_cast<int64_t>(s) * MAX_BLOCKS + blockIdx.x] =
         ordered_fold<THREADS / 32>(slot_op(a, s), &sh[0][s], THREADS / 32,
                                    W, false);
-    __threadfence();               // the partial is visible before the ticket
+    // the partial (and threads 0 and 1's node sums) visible before the
+    // ticket
+    __threadfence();
   }
   __syncthreads();
   if (threadIdx.x == 0)
@@ -381,6 +451,7 @@ agg_kernel(ColTable p, ColTable a, int64_t n, int vec, int64_t* part,
   const int nb = static_cast<int>(gridDim.x);
   for (int s = warp; s < W; s += THREADS / 32) {
     const int op = slot_op(a, s);
+    if (op == OP_ADD_F) continue;          // float64 sums: the node tree
     const int mine = lane < nb ? (nb - lane + 31) / 32 : 0;
     int64_t v = mine ? ordered_fold<(MAX_BLOCKS + 31) / 32>(
                            op, part + static_cast<int64_t>(s) * MAX_BLOCKS +
@@ -389,6 +460,38 @@ agg_kernel(ColTable p, ColTable a, int64_t n, int vec, int64_t* part,
     v = warp_fold(op, v);
     if (lane == 0) out[s == 0 ? 0 : s + 4 * col_base] = v;
   }
+  // float64 sums: fold the nodes 32 at a time, left to right from 0.0 (a
+  // missing child adds +0.0), level by level into the node array's tail
+#pragma unroll 1
+  for (int j = 0; j < NA; ++j) {
+#ifdef K2_PROBE_NO_TAIL              // scripts/probes: no node fold
+    break;
+#endif
+    if (a.c[j].dtype != DT_F64) continue;
+    const double* src = nodes + j * node_stride;
+    double* dst = nodes + j * node_stride + n_nodes;
+    for (int64_t len = n_nodes; len > 1;) {
+      const int64_t parents = (len + TREE_W - 1) / TREE_W;
+      for (int64_t q0 = threadIdx.x; q0 < parents; q0 += THREADS) {
+        double v[TREE_W];              // every child in flight, then the adds
+#pragma unroll
+        for (int q = 0; q < TREE_W; ++q) {
+          const int64_t i = q0 * TREE_W + q;
+          v[q] = i < len ? __ldcg(src + i) : 0.0;
+        }
+        double s = 0.0;
+#pragma unroll
+        for (int q = 0; q < TREE_W; ++q) s += v[q];
+        dst[q0] = s;
+      }
+      __syncthreads();               // the level is visible to the block
+      src = dst;
+      dst += parents;
+      len = parents;
+    }
+    if (threadIdx.x == 0)
+      out[2 + 4 * (col_base + j)] = __double_as_longlong(__ldcg(src));
+  }
   if (threadIdx.x == 0) *ticket = 0u;   // ready for the next launch
 }
 
@@ -396,21 +499,25 @@ template <int NA>
 static void launch_na(const ColTable& p, const ColTable& a, int64_t n,
                       int vec, int blocks, int64_t* part,
                       unsigned int* ticket, int col_base, int64_t* out,
-                      cudaStream_t s) {
+                      double* nodes, int64_t node_stride, cudaStream_t s) {
   agg_kernel<NA><<<blocks, THREADS, 0, s>>>(p, a, n, vec, part, ticket,
-                                            col_base, out);
+                                            col_base, out, nodes,
+                                            node_stride);
 }
 
 // preds: k <= MAX_COLS predicate descriptors; aggs: m aggregate columns
 // (any number, one launch per MAX_COLS).  blocks <= MAX_BLOCKS; part:
 // int64[1 + 4 MAX_COLS, MAX_BLOCKS] scratch and ticket: one uint32, 0 between
 // launches (the kernel leaves it 0), both private to the stream; vec: every
-// operand 16-byte aligned.  out: int64[1 + 4m], float slots as raw f64
-// bits.
+// operand 16-byte aligned; nodes: float64[MAX_COLS * node_stride]
+// scratch, node_stride at least ceil(n / 1024) plus the upper levels
+// (tree_node_stride in kernels/columnar_ops.py).  out: int64[1 + 4m],
+// float slots as raw f64 bits.
 extern "C" int rt_filter_aggregate(const ColDesc* preds, int k,
                                    const ColDesc* aggs, int m, int64_t n,
                                    int blocks, int vec, int64_t* part,
                                    unsigned int* ticket, int64_t* out,
+                                   double* nodes, int64_t node_stride,
                                    void* stream) {
   if (k > MAX_COLS || blocks < 1 || blocks > MAX_BLOCKS)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -424,23 +531,32 @@ extern "C" int rt_filter_aggregate(const ColDesc* preds, int k,
     a.n = m - g < MAX_COLS ? m - g : MAX_COLS;
     for (int j = 0; j < a.n; ++j) a.c[j] = aggs[g + j];
     switch (a.n) {
-      case 0: launch_na<0>(p, a, n, vec, blocks, part, ticket, g, out, s);
+      case 0: launch_na<0>(p, a, n, vec, blocks, part, ticket, g, out,
+                        nodes, node_stride, s);
         break;
-      case 1: launch_na<1>(p, a, n, vec, blocks, part, ticket, g, out, s);
+      case 1: launch_na<1>(p, a, n, vec, blocks, part, ticket, g, out,
+                        nodes, node_stride, s);
         break;
-      case 2: launch_na<2>(p, a, n, vec, blocks, part, ticket, g, out, s);
+      case 2: launch_na<2>(p, a, n, vec, blocks, part, ticket, g, out,
+                        nodes, node_stride, s);
         break;
-      case 3: launch_na<3>(p, a, n, vec, blocks, part, ticket, g, out, s);
+      case 3: launch_na<3>(p, a, n, vec, blocks, part, ticket, g, out,
+                        nodes, node_stride, s);
         break;
-      case 4: launch_na<4>(p, a, n, vec, blocks, part, ticket, g, out, s);
+      case 4: launch_na<4>(p, a, n, vec, blocks, part, ticket, g, out,
+                        nodes, node_stride, s);
         break;
-      case 5: launch_na<5>(p, a, n, vec, blocks, part, ticket, g, out, s);
+      case 5: launch_na<5>(p, a, n, vec, blocks, part, ticket, g, out,
+                        nodes, node_stride, s);
         break;
-      case 6: launch_na<6>(p, a, n, vec, blocks, part, ticket, g, out, s);
+      case 6: launch_na<6>(p, a, n, vec, blocks, part, ticket, g, out,
+                        nodes, node_stride, s);
         break;
-      case 7: launch_na<7>(p, a, n, vec, blocks, part, ticket, g, out, s);
+      case 7: launch_na<7>(p, a, n, vec, blocks, part, ticket, g, out,
+                        nodes, node_stride, s);
         break;
-      default: launch_na<8>(p, a, n, vec, blocks, part, ticket, g, out, s);
+      default: launch_na<8>(p, a, n, vec, blocks, part, ticket, g, out,
+                        nodes, node_stride, s);
     }
     g += MAX_COLS;
   } while (g < m);

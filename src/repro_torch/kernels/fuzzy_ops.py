@@ -5,9 +5,12 @@ out with the reference's signatures (``repro/kernels/fuzzy_ops.py``):
                                  matrix (pure numpy, copied as is)
   t_occurrence_mask(pos, n, T)   K4: posting-position hits -> bool bitmap
                                  of rows with >= T hits; at T = 1 this is
-                                 every secondary-index candidate bitmap
+                                 every secondary-index candidate bitmap,
+                                 at T > 1 the ngram probe (its segments
+                                 sorted, counted a row tile at a time)
   edit_distances(strs, q, d)     K5: min(levenshtein(s, q), d + 1) per
-                                 candidate string (saturating DP)
+                                 candidate string (bit-parallel on the
+                                 card up to a 64-character query)
   set_intersect_counts(a, b)     K6: |a_i & b_i| per pair of sorted,
                                  dictionary-coded sets (``_padded`` for
                                  callers holding one padded record matrix)
@@ -18,7 +21,8 @@ out with the reference's signatures (``repro/kernels/fuzzy_ops.py``):
 
 ``positions`` is either one host array of row positions (the reference's
 signature) or a list of :class:`Segment` s — slices of immutable posting
-arrays plus a row offset.  Segment arrays go through the device pool, so
+arrays plus a row offset, marked ``sorted`` where the caller knows the
+slice's positions ascend.  Segment arrays go through the device pool, so
 an index probe over resident postings ships nothing host -> device.
 
 Every kernel wrapper dispatches on the device of its pooled operands: a
@@ -33,7 +37,7 @@ reference's bit for bit.
 from __future__ import annotations
 
 import ctypes
-from typing import Any, List, NamedTuple, Sequence, Tuple, Union
+from typing import Any, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -44,7 +48,8 @@ from .columnar_ops import note_shape
 from ..obs import record_dispatch as _record_dispatch
 from ..columnar.batch import pow2_len as _pow2_len
 
-__all__ = ["fnv1a_hash", "t_occurrence_mask", "Segment", "tocc_plain",
+__all__ = ["fnv1a_hash", "t_occurrence_mask", "Segment", "DevSeg",
+           "tocc_plain",
            "tocc_cuda", "edit_distances", "ed_plain", "ed_cuda",
            "set_intersect_counts", "set_intersect_counts_padded",
            "inter_plain", "inter_cuda", "encode_bitsets",
@@ -96,22 +101,35 @@ def fnv1a_hash(tokens: Sequence[str]) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 class Segment(NamedTuple):
-    """``positions[start:stop] + offset``: one tier's posting slice."""
+    """``positions[start:stop] + offset``: one tier's posting slice.
+    ``sorted``: the slice's positions are non-decreasing (set only by
+    callers that know it; K4 at T > 1 then counts a row tile at a time)."""
     positions: np.ndarray
     start: int
     stop: int
     offset: int
+    sorted: bool = False
 
 
-# device segment: (int64 tensor, start, count, offset)
-DevSeg = Tuple[torch.Tensor, int, int, int]
+class DevSeg(NamedTuple):
+    """A segment on the device: ``pos[start:start + count] + offset``;
+    a sorted one carries its first and last position (host values), from
+    which the kernel interpolates where a row falls."""
+    pos: torch.Tensor
+    start: int
+    count: int
+    offset: int
+    sorted: bool = False
+    first: int = 0
+    last: int = 0
 
 
 def tocc_plain(segs: Sequence[DevSeg], n: int, n_out: int,
                threshold: int) -> torch.Tensor:
     """K4's plain version: bool [n_out], rows < n with >= T hits."""
-    dev = segs[0][0].device
-    pos = torch.cat([t[a:a + c] + off for t, a, c, off in segs])
+    dev = segs[0].pos.device
+    pos = torch.cat([s.pos[s.start:s.start + s.count] + s.offset
+                     for s in segs])
     pos = pos[(pos >= 0) & (pos < n)]
     out = torch.zeros(n_out, dtype=torch.bool, device=dev)
     if threshold == 1:
@@ -127,23 +145,69 @@ class SegDesc(ctypes.Structure):
                 ("count", ctypes.c_int64), ("offset", ctypes.c_int64)]
 
 
-def tocc_cuda(segs: Sequence[DevSeg], n: int, n_out: int,
-              threshold: int) -> torch.Tensor:
-    """K4 on the card: bool [n_out]."""
-    dev = segs[0][0].device
-    descs = (SegDesc * len(segs))()
-    for j, (t, a, c, off) in enumerate(segs):
-        if not (t.is_cuda and t.dtype == torch.int64 and t.is_contiguous()):
+class SortedSeg(ctypes.Structure):
+    """Mirror of ``struct SortedSeg`` in csrc/t_occurrence.cu."""
+    _fields_ = [("pos", ctypes.c_void_p), ("count", ctypes.c_int64),
+                ("offset", ctypes.c_int64), ("first", ctypes.c_int64),
+                ("slope", ctypes.c_double)]
+
+
+# csrc/t_occurrence.cu: segments the sorted kernel takes in its parameters
+# (a longer table is copied to the device)
+_TOCC_PARAM_SEGS = 96
+
+
+def _sorted_table(segs: Sequence[DevSeg]) -> ctypes.Array:
+    descs = (SortedSeg * len(segs))()
+    for d, s in zip(descs, segs):
+        d.pos = s.pos.data_ptr() + 8 * s.start
+        d.count, d.offset, d.first = s.count, s.offset, s.first
+        d.slope = (s.count - 1) / (s.last - s.first) \
+            if s.last > s.first else 0.0
+    return descs
+
+
+def tocc_cuda(segs: Sequence[DevSeg], n: int, n_out: int, threshold: int,
+              shipped: Optional[List[np.ndarray]] = None) -> torch.Tensor:
+    """K4 on the card: bool [n_out].  At T > 1 over segments all marked
+    sorted, one launch of the row-tile kernel (``launches_sorted``); else
+    the scatter kernel.  A table of more than ``_TOCC_PARAM_SEGS`` sorted
+    segments is copied to the device, and its bytes are appended to
+    ``shipped``."""
+    dev = segs[0].pos.device
+    for s in segs:
+        if not (s.pos.is_cuda and s.pos.dtype == torch.int64
+                and s.pos.is_contiguous()):
             raise TypeError("t_occurrence_mask: contiguous CUDA int64 "
                             "positions expected")
-        descs[j].pos, descs[j].start = t.data_ptr(), a
-        descs[j].count, descs[j].offset = c, off
     out = torch.empty(n_out, dtype=torch.bool, device=dev)
-    counts = torch.empty(n + 1 if threshold > 1 else 1, dtype=torch.int32,
-                         device=dev)
-    f = _fn("rt_t_occurrence", [_P, _I, _L, _L, _I, _P, _P, _P])
-    rc = f(ctypes.cast(descs, ctypes.c_void_p), len(segs), n, n_out,
-           threshold, counts.data_ptr(), out.data_ptr(), _ops.stream(out))
+    if threshold > 1 and all(s.sorted for s in segs):
+        if out.data_ptr() % 16:
+            raise TypeError("t_occurrence_mask: 16-byte aligned output "
+                            "expected")
+        descs = _sorted_table(segs)
+        ext = None
+        if len(segs) > _TOCC_PARAM_SEGS:
+            table = np.frombuffer(descs, dtype=np.uint8)
+            ext = torch.from_numpy(table.copy()).to(dev)
+            if shipped is not None:
+                shipped.append(table)
+        f = _fn("rt_t_occurrence_sorted", [_P, _I, _L, _L, _I, _P, _P, _P])
+        rc = f(ctypes.cast(descs, ctypes.c_void_p), len(segs), n, n_out,
+               threshold, None if ext is None else ext.data_ptr(),
+               out.data_ptr(), _ops.stream(out))
+        tocc_cuda.launches_sorted += 1
+    else:
+        descs = (SegDesc * len(segs))()
+        for d, s in zip(descs, segs):
+            d.pos, d.start = s.pos.data_ptr(), s.start
+            d.count, d.offset = s.count, s.offset
+        counts = torch.empty(n + 1 if threshold > 1 else 1,
+                             dtype=torch.int32, device=dev)
+        f = _fn("rt_t_occurrence", [_P, _I, _L, _L, _I, _P, _P, _P])
+        rc = f(ctypes.cast(descs, ctypes.c_void_p), len(segs), n, n_out,
+               threshold, counts.data_ptr(), out.data_ptr(),
+               _ops.stream(out))
     tocc_cuda.launches += 1
     tocc_cuda.launches_t1 += threshold == 1
     _ops.check(rc, "t_occurrence_mask")
@@ -152,6 +216,7 @@ def tocc_cuda(segs: Sequence[DevSeg], n: int, n_out: int,
 
 tocc_cuda.launches = 0
 tocc_cuda.launches_t1 = 0           # of them at T = 1 (the columnar probes)
+tocc_cuda.launches_sorted = 0       # of them by the row-tile kernel
 
 
 def t_occurrence_mask(positions: Union[np.ndarray, List[Segment]], n: int,
@@ -177,12 +242,14 @@ def t_occurrence_mask(positions: Union[np.ndarray, List[Segment]], n: int,
     host = [s.positions if s.positions.dtype == np.int64
             else s.positions.astype(np.int64) for s in segs]
     ops, missed = _pool.fetch(host)
-    dsegs = [(t, int(s.start), int(s.stop - s.start), int(s.offset))
-             for t, s in zip(ops, segs)]
+    dsegs = [DevSeg(t, int(s.start), int(s.stop - s.start), int(s.offset),
+                    bool(s.sorted), int(h[s.start]), int(h[s.stop - 1]))
+             for t, h, s in zip(ops, host, segs)]
     np2 = _pow2_len(n)
-    note_shape("t_occurrence_mask", np2, _pow2_len(m), threshold == 1)
+    # (n, m, T, segments): chip_smoke.py prints the keys the path met
+    note_shape("t_occurrence_mask", np2, _pow2_len(m), threshold, len(segs))
     if ops[0].is_cuda:
-        out_t = tocc_cuda(dsegs, n, np2, threshold)
+        out_t = tocc_cuda(dsegs, n, np2, threshold, shipped=missed)
     else:
         out_t = tocc_plain(dsegs, n, np2, threshold)
     out = out_t.cpu().numpy()
@@ -194,7 +261,8 @@ def t_occurrence_mask(positions: Union[np.ndarray, List[Segment]], n: int,
 # K5: saturating edit distance (candidate verification)
 # ---------------------------------------------------------------------------
 
-_ED_SMEM_ROW = 64        # csrc/edit_distance.cu ED_SMEM_ROW
+_ED_BITS = 64            # csrc/edit_distance.cu ED_BITS: the longest query
+                         # the bit-parallel kernel takes
 
 
 def _code_points(strings: Sequence[str]) -> Tuple[np.ndarray, np.ndarray]:
@@ -247,7 +315,8 @@ def ed_plain(cand: torch.Tensor, lens: torch.Tensor, q: torch.Tensor,
 
 def ed_cuda(cand: torch.Tensor, lens: torch.Tensor, q: torch.Tensor,
             m: int, cap: int) -> torch.Tensor:
-    """K5 on the card: int64 [B]."""
+    """K5 on the card: int64 [B]; bit-parallel up to a 64-character
+    query, the saturating DP (with a scratch row a candidate) beyond."""
     if not (cand.is_cuda and lens.is_cuda and q.is_cuda
             and cand.dtype == torch.int32 and cand.dim() == 2
             and cand.is_contiguous() and lens.dtype == torch.int64
@@ -258,12 +327,13 @@ def ed_cuda(cand: torch.Tensor, lens: torch.Tensor, q: torch.Tensor,
     B, lp = cand.shape
     out = torch.empty(B, dtype=torch.int64, device=cand.device)
     scratch = torch.empty((m + 1) * B, dtype=torch.int32,
-                          device=cand.device) \
-        if m + 1 > _ED_SMEM_ROW else None
-    f = _fn("rt_edit_distance", [_P, _P, _L, _L, _P, _I, _I, _P, _P, _P])
+                          device=cand.device) if m > _ED_BITS else None
+    vec = lp % 4 == 0 and cand.data_ptr() % 16 == 0
+    f = _fn("rt_edit_distance",
+            [_P, _P, _L, _L, _P, _I, _I, _I, _P, _P, _P])
     rc = f(cand.data_ptr(), lens.data_ptr(), B, lp, q.data_ptr(), m, cap,
-           None if scratch is None else scratch.data_ptr(), out.data_ptr(),
-           _ops.stream(out))
+           int(vec), None if scratch is None else scratch.data_ptr(),
+           out.data_ptr(), _ops.stream(out))
     ed_cuda.launches += 1
     _ops.check(rc, "edit_distances")
     return out

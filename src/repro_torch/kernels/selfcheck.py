@@ -28,6 +28,7 @@ products run on the tensor cores, also states its tensor-core time
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -44,7 +45,8 @@ from .columnar_ops import _prep_bounds
 __all__ = ["KERNELS", "SUM_RTOL", "MODEL_RTOL", "BF16_RTOL",
            "launch_counts", "reset_launch_counts", "launch_splits",
            "k1_case", "k2_case",
-           "k3_case", "k4_case", "k5_case", "k6_case", "a7_case", "k7_case",
+           "k3_case", "k4_case", "k4_path_case", "k5_case", "k6_case",
+           "a7_case", "k7_case",
            "k8_case", "k9_case", "main_path_cases", "serve_cases",
            "run_case", "device_ms", "profiler_works"]
 
@@ -111,8 +113,9 @@ KERNELS = {
 
 
 # launch counters kept beside ``launches`` where a kernel's launches split
-# by case: K4's at T = 1 (the rest are T > 1)
-SPLIT_COUNTERS = {"t_occurrence_mask": "launches_t1"}
+# by case: K4's at T = 1 and by its sorted row-tile kernel (the rest are
+# T > 1 by the scatter kernel)
+SPLIT_COUNTERS = {"t_occurrence_mask": ("launches_t1", "launches_sorted")}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -120,16 +123,19 @@ def launch_counts() -> Dict[str, int]:
 
 
 def launch_splits() -> Dict[str, Dict[str, int]]:
-    """K4's launches split by threshold: {"T=1": .., "T>1": ..}."""
+    """K4's launches split by threshold and route: {"T=1": .., "T>1
+    sorted": .., "T>1 scatter": ..}."""
     w = KERNELS["t_occurrence_mask"]["wrapper"]
-    return {"t_occurrence_mask": {"T=1": w.launches_t1,
-                                  "T>1": w.launches - w.launches_t1}}
+    return {"t_occurrence_mask": {
+        "T=1": w.launches_t1, "T>1 sorted": w.launches_sorted,
+        "T>1 scatter": w.launches - w.launches_t1 - w.launches_sorted}}
 
 
 def _counters() -> Dict[Tuple[str, str], int]:
     out = {(k, "launches"): v["wrapper"].launches for k, v in KERNELS.items()}
-    for k, attr in SPLIT_COUNTERS.items():
-        out[(k, attr)] = getattr(KERNELS[k]["wrapper"], attr)
+    for k, attrs in SPLIT_COUNTERS.items():
+        for attr in attrs:
+            out[(k, attr)] = getattr(KERNELS[k]["wrapper"], attr)
     return out
 
 
@@ -149,7 +155,8 @@ def reset_launch_counts() -> None:
 def _columns(rng: np.random.Generator, n: int, kinds: List[str],
              bounds: bool, dev: torch.device) -> list:
     """TinySocial-like columns: int64 epoch-microsecond timestamps (far
-    beyond 2**24), int64 ids, float64 with NaN, int32 dictionary codes."""
+    beyond 2**24), int64 ids, float64 with NaN (or without: "f64n"),
+    int32 dictionary codes."""
     cols = []
     for kind in kinds:
         valid = rng.random(n) < 0.95
@@ -160,9 +167,10 @@ def _columns(rng: np.random.Generator, n: int, kinds: List[str],
         elif kind == "id":
             x = rng.integers(0, 200_000, n, dtype=np.int64)
             lo, hi = 1_000, 150_000
-        elif kind == "f64":
+        elif kind in ("f64", "f64n"):          # "f64n": no NaN
             x = rng.normal(1e3, 3e2, n)
-            x[rng.random(n) < 0.01] = np.nan
+            if kind == "f64":
+                x[rng.random(n) < 0.01] = np.nan
             lo, hi = 900.0, None
         else:                                  # "code": int32 dictionary
             x = rng.integers(0, 50, n).astype(np.int32)
@@ -259,30 +267,104 @@ def k3_case(n: int, m: int, seed: int, dev: torch.device,
             "ops": n * max(1, math.ceil(math.log2(max(m, 2))))}
 
 
-def k4_case(n: int, m: int, threshold: int, seed: int, dev: torch.device,
-            tiers: int = 4) -> Dict[str, Any]:
-    """``m`` posting positions over ``n`` rows in ``tiers`` segments of
-    resident arrays (row offsets as in the storage concat)."""
-    rng = np.random.default_rng(seed)
-    per = n // tiers
-    segs = []
-    for t in range(tiers):
-        pos = np.sort(rng.integers(0, per, m // tiers, dtype=np.int64))
-        segs.append((torch.from_numpy(pos).to(dev), 0, int(pos.shape[0]),
-                     t * per))
-    flat = torch.cat([s[0] + s[3] for s in segs])
+def dev_segments(parts: List[Tuple[np.ndarray, int, int, int]],
+                 dev: torch.device, sorted_: bool) -> List[Any]:
+    """K4 device segments from (host positions, start, stop, offset), as
+    ``t_occurrence_mask`` makes them: slices of one device copy of each
+    host array."""
+    copies: Dict[int, torch.Tensor] = {}
+    out = []
+    for pos, a, b, off in parts:
+        if id(pos) not in copies:
+            copies[id(pos)] = torch.from_numpy(pos).to(dev)
+        out.append(FO.DevSeg(copies[id(pos)], a, b - a, off, sorted_,
+                             int(pos[a]) if b > a else 0,
+                             int(pos[b - 1]) if b > a else 0))
+    return out
+
+
+def _k4(segs: List[Any], n: int, n_out: int, threshold: int, label: str
+        ) -> Dict[str, Any]:
+    flat = torch.cat([s.pos[s.start:s.start + s.count] + s.offset
+                      for s in segs])
+    keep = flat[(flat >= 0) & (flat < n)]
+    m = int(flat.shape[0])
+    route = "sorted" if threshold > 1 and all(s.sorted for s in segs) \
+        else "scatter"
     return {"kernel": "t_occurrence_mask",
-            "label": f"n={n} m={m} T={threshold}",
-            "run": lambda: FO.tocc_cuda(segs, n, n, threshold),
-            "plain": lambda: FO.tocc_plain(segs, n, n, threshold),
-            "library": lambda: torch.bincount(flat, minlength=n) >= threshold,
+            "label": f"{label} n={n} m={m} segments={len(segs)} "
+                     f"T={threshold} {route}",
+            "run": lambda: FO.tocc_cuda(segs, n, n_out, threshold),
+            "plain": lambda: FO.tocc_plain(segs, n, n_out, threshold),
+            "library": lambda: torch.bincount(keep, minlength=n) >= threshold,
             "compare": _mask_compare,
-            "bytes": 8 * m + n,
+            "bytes": 8 * m + n_out,
             "ops": m}
 
 
-# per DP cell: min(up, left) + 1, a compare-add on the diagonal, two mins
+def k4_case(n: int, m: int, threshold: int, seed: int, dev: torch.device,
+            tiers: int = 4, sorted_: bool = False) -> Dict[str, Any]:
+    """``m`` posting positions over ``n`` rows in ``tiers`` segments of
+    resident arrays, each sorted over its own ``n // tiers`` rows (row
+    offsets as in the storage concat); ``sorted_`` marks them so."""
+    rng = np.random.default_rng(seed)
+    per = n // tiers
+    parts = []
+    for t in range(tiers):
+        pos = np.sort(rng.integers(0, per, m // tiers, dtype=np.int64))
+        parts.append((pos, 0, int(pos.shape[0]), t * per))
+    return _k4(dev_segments(parts, dev, sorted_), n, n, threshold, "tiers")
+
+
+PATH_USERS = 50_000          # one users partition of chip_smoke.py's 200k
+PATH_QUERY = "User Number 123"
+
+
+@functools.lru_cache(maxsize=1)
+def path_user_names(seed: int) -> Tuple[str, ...]:
+    """One users partition of chip_smoke.py's 200,000: 50,000 distinct
+    "User Number NNNNN" names, as TinySocial's generator names users."""
+    rng = np.random.default_rng(seed)
+    return tuple(f"User Number {i}"
+                 for i in rng.choice(200_000, PATH_USERS, replace=False))
+
+
+@functools.lru_cache(maxsize=1)
+def _path_postings(seed: int) -> Any:
+    from ..fuzzy.ngram import GRAM_K, GramPostings
+    return GramPostings.from_values(list(path_user_names(seed)), GRAM_K)
+
+
+def path_gram_segments(seed: int, d: int
+                       ) -> Tuple[List[Tuple[np.ndarray, int, int, int]],
+                                  int]:
+    """The ngram probe's K4 operands for one users partition: the names'
+    gram postings, built as a flushed component builds them, and the
+    segments ``hit_segments`` gives for the table-3 query at edit distance
+    ``d``; with its threshold T (13 at d = 1, 7 at d = 3)."""
+    from ..fuzzy.ngram import GRAM_K, query_grams
+    qh, threshold = query_grams(("name", "ed", PATH_QUERY, d), GRAM_K)
+    return [(s.positions, s.start, s.stop, s.offset)
+            for s in _path_postings(seed).hit_segments(qh, 0)], threshold
+
+
+def k4_path_case(d: int, seed: int, dev: torch.device) -> Dict[str, Any]:
+    """K4 as ``Dataset.ngram_candidate_mask`` calls it on one users
+    partition: n = 50,000 rows (n_out 65,536), one sorted segment per
+    query gram over all rows, at most one hit a row a segment."""
+    parts, threshold = path_gram_segments(seed, d)
+    n = PATH_USERS
+    return _k4(dev_segments(parts, dev, True), n, FO._pow2_len(n),
+               threshold, f"ngram d={d}")
+
+
+# per DP cell (queries past 64 characters): min(up, left) + 1, a
+# compare-add on the diagonal, two mins
 ED_OPS_PER_CELL = 6
+# per candidate character and 32-bit word of the bit-parallel column: the
+# Peq lookup, the 13 logic and add steps of the recurrence, the two
+# last-row tests and the distance update
+ED_OPS_PER_CHAR_WORD = 20
 
 
 def k5_case(strings: List[str], query: str, d: int, dev: torch.device
@@ -297,7 +379,9 @@ def k5_case(strings: List[str], query: str, d: int, dev: torch.device
     cap = min(d + 1, mat.shape[1] + m + 1)
     cand, lt = torch.from_numpy(mat).to(dev), torch.from_numpy(lens).to(dev)
     qt = torch.from_numpy(q).to(dev)
-    cells = int(np.minimum(lens, mat.shape[1]).sum()) * m
+    chars = int(np.minimum(lens, mat.shape[1]).sum())
+    ops = ED_OPS_PER_CELL * chars * m if m > FO._ED_BITS else \
+        ED_OPS_PER_CHAR_WORD * chars * max(1, -(-m // 32))
     return {"kernel": "edit_distances",
             "label": f"B={bp} L={mat.shape[1]} m={m} d={d}",
             "run": lambda: FO.ed_cuda(cand, lt, qt, m, cap),
@@ -305,7 +389,7 @@ def k5_case(strings: List[str], query: str, d: int, dev: torch.device
             "library": None,
             "compare": _mask_compare,
             "bytes": 4 * int(lens.sum()) + 8 * bp + 4 * m + 8 * bp,
-            "ops": ED_OPS_PER_CELL * cells}
+            "ops": ops}
 
 
 def _random_strings(rng: np.random.Generator, B: int, L: int,
@@ -384,23 +468,27 @@ def main_path_cases(dev: torch.device, seed: int = 0) -> List[Dict]:
     flushes into a 2**18-key union; a quarter-range index probe of 2**17
     positions over the partition, at T = 1 and T = 3.  The fuzzy phase's
     shapes: K4 counting 2**20 gram hits over a users partition (2**16
-    rows) at T = 13; K5 verifying one users partition's 50,000 distinct
-    names (2**16 padded, L = 32) against the 15-character table-3 query
-    at d = 3; K6 scoring 2**7 candidate names' gram sets (S1 = 32)
+    rows) in 16 segments at T = 13 (each segment 4,096 rows with ~16 hits
+    a row; kept for comparison with earlier runs), and as the ngram probe
+    gives it (``k4_path_case``: 50,000 rows, the table-3 query's 16 gram
+    segments, T = 13 at d = 1 and 7 at d = 3); K5 verifying one users
+    partition's 50,000 distinct names (2**16 padded, L = 32) against the
+    15-character table-3 query at d = 3; K6 scoring 2**7 candidate names' gram sets (S1 = 32)
     against a query's (S2 = 32), and a wide-vocabulary
     FuzzyJoin's 2**17 record pairs of width 67; A7 the clustered
     FuzzyJoin's 2**18 pairs over 4,096 records of W = 32 words."""
     n = 1 << 19
-    rng = np.random.default_rng(seed + 5)
-    names = [f"User Number {i}"
-             for i in rng.choice(200_000, 50_000, replace=False)]
+    names = list(path_user_names(seed + 5))
     return [k1_case(n, ["ts", "id"], seed, dev),
             k2_case(n, ["ts", "id"], ["id", "f64"], seed + 1, dev),
             k3_case(1 << 18, 1 << 16, seed + 2, dev),
             k4_case(n, 1 << 17, 1, seed + 3, dev),
             k4_case(n, 1 << 19, 3, seed + 4, dev),
-            k5_case(names, "User Number 123", 3, dev),
-            k4_case(1 << 16, 1 << 20, 13, seed + 9, dev, tiers=16),
+            k5_case(names, PATH_QUERY, 3, dev),
+            k4_case(1 << 16, 1 << 20, 13, seed + 9, dev, tiers=16,
+                    sorted_=True),
+            k4_path_case(1, seed + 5, dev),
+            k4_path_case(3, seed + 5, dev),
             k6_case(1 << 7, 32, 32, 1 << 20, seed + 6, dev),
             k6_case(1 << 17, 67, 67, 1 << 16, seed + 7, dev),
             a7_case(1 << 12, 32, 1 << 18, 60 / 800, seed + 8, dev)]

@@ -94,6 +94,73 @@ def test_t_occurrence_segments_equal_concatenation(RF, threshold):
                                   force_pallas=False))
 
 
+def _gram_postings(names):
+    from repro_torch.fuzzy.ngram import GRAM_K, GramPostings
+    return GramPostings.from_values(names, GRAM_K)
+
+
+@pytest.mark.parametrize("spec", [("ed", 1), ("ed", 3), ("jaccard", 0.8)])
+def test_t_occurrence_sorted_gram_segments(RF, spec):
+    """The ngram probe's segments (``hit_segments``, marked sorted) over
+    two tiers give the reference's mask of the concatenated hits."""
+    from repro_torch.fuzzy.ngram import GRAM_K, query_grams
+    rng = np.random.default_rng(len(spec[0]))
+    names = [f"User Number {i}" for i in rng.choice(5000, 600, False)]
+    tiers = [_gram_postings(names[:400]), _gram_postings(names[400:])]
+    qh, threshold = query_grams(("name", spec[0], "User Number 123",
+                                 spec[1]), GRAM_K)
+    assert threshold > 1
+    segs = tiers[0].hit_segments(qh, 0) + tiers[1].hit_segments(qh, 400)
+    assert segs and all(s.sorted for s in segs)
+    flat = np.concatenate([s.positions[s.start:s.stop] + s.offset
+                           for s in segs])
+    got = PF.t_occurrence_mask(segs, 600, threshold)
+    np.testing.assert_array_equal(
+        got, RF.t_occurrence_mask(flat, 600, threshold, force_pallas=False))
+
+
+def test_hit_segments_are_sorted_and_only_they_say_so():
+    """Every slice ``GramPostings.hit_segments`` returns ascends and is
+    marked sorted (memtable values and dictionary-coded columns alike),
+    and no other ``Segment`` constructor in the port sets the flag."""
+    import ast
+    import pathlib
+    from repro_torch.columnar.batch import ColumnBatch
+    from repro_torch.fuzzy.ngram import GRAM_K, GramPostings, query_grams
+    rng = np.random.default_rng(5)
+    names = [f"User Number {i}" if i % 7 else None
+             for i in rng.choice(3000, 500, False)]
+    batch = ColumnBatch.from_rows([{"name": v} if v else {}
+                                   for v in names])
+    assert batch.columns["name"].kind == "str"
+    built = [GramPostings.from_values(names, GRAM_K),
+             GramPostings.from_batch(batch, "name", GRAM_K, len(names))]
+    qh, _ = query_grams(("name", "ed", "User Number 12", 2), GRAM_K)
+    for post in built:
+        segs = post.hit_segments(qh, 7)
+        assert segs
+        for s in segs:
+            assert s.sorted
+            assert (np.diff(s.positions[s.start:s.stop]) >= 0).all()
+    root = pathlib.Path(PF.__file__).resolve().parents[1]
+    flagged = []
+    for path in sorted(root.rglob("*.py")):
+        tree = ast.parse(path.read_text())
+        for fn in ast.walk(tree):
+            if not isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                continue
+            for node in ast.walk(fn):
+                if not isinstance(node, ast.Call):
+                    continue
+                name = getattr(node.func, "id", None) or \
+                    getattr(node.func, "attr", None)
+                if name == "Segment" and (
+                        len(node.args) > 4
+                        or any(k.arg == "sorted" for k in node.keywords)):
+                    flagged.append((path.name, fn.name))
+    assert sorted(set(flagged)) == [("ngram.py", "hit_segments")]
+
+
 @pytest.mark.parametrize("case", ["n0", "t0", "m0"])
 def test_t_occurrence_short_circuits(RF, case):
     pos = np.array([1, 2, 2], np.int64)
@@ -200,6 +267,53 @@ def test_edit_distances_plain_equals_python_oracle():
         for d in (0, 5, 10 ** 6):
             assert PF.edit_distances(strs, query, d).tolist() == \
                 [min(edit_distance(s, query), d + 1) for s in strs]
+
+
+def _bit_parallel_ed(s, q, cap):
+    """A transcription of csrc/edit_distance.cu's bit-parallel recurrence
+    (Myers, in Hyyro's form for the global distance), kept here to settle
+    the algorithm on the CPU: one 32-bit word up to m = 32, one 64-bit word
+    up to 64, wrapped to the word as the card's integers wrap."""
+    m = len(q)
+    if m == 0:
+        return min(len(s), cap)
+    bits = 32 if m <= 32 else 64
+    full = (1 << bits) - 1
+    peq = {}
+    for i, c in enumerate(q):
+        peq[c] = peq.get(c, 0) | (1 << i)
+    top = 1 << (m - 1)
+    pv, mv, score = full, 0, m
+    for c in s:
+        eq = peq.get(c, 0)
+        xv = eq | mv
+        xh = ((((eq & pv) + pv) & full) ^ pv) | eq
+        ph = mv | (~(xh | pv) & full)
+        mh = pv & xh
+        score += bool(ph & top) - bool(mh & top)
+        ph = ((ph << 1) | 1) & full
+        mh = (mh << 1) & full
+        pv = mh | (~(xv | ph) & full)
+        mv = ph & xv
+    return min(score, cap)
+
+
+@pytest.mark.parametrize("m", [0, 1, 15, 31, 32, 33, 63, 64])
+def test_bit_parallel_recurrence_equals_the_dp(RF, m):
+    """The bit-parallel recurrence at the word-boundary query lengths
+    against the port's plain DP (``ed_plain``) and the reference's jnp
+    core, on seeded strings shorter and longer than the query, with
+    repeated and non-ASCII code points, at d = 0, 1, 3 and 1000."""
+    rng = np.random.default_rng(m + 50)
+    query = "".join(rng.choice(ALPHABET, m))
+    strs = _strings(rng, 40, 80) + ["", query, query[::-1]]
+    lp = PF._pow2_len(max(len(x) for x in strs))
+    for d in (0, 1, 3, 1000):
+        cap = min(d + 1, lp + m + 1)
+        want = [_bit_parallel_ed(x, query, cap) for x in strs]
+        assert PF.edit_distances(strs, query, d).tolist() == want
+        assert RF.edit_distances(strs, query, d,
+                                 force_pallas=False).tolist() == want
 
 
 # ---------------------------------------------------------------------------

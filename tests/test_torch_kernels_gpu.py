@@ -14,6 +14,8 @@ import torch
 import repro_torch
 from repro_torch.kernels import selfcheck as SC
 
+from _torch_doubles import DOUBLE_SIZES
+
 pytestmark = pytest.mark.gpu
 
 
@@ -68,6 +70,100 @@ def test_t_occurrence_kernel(dev, threshold, sizes, tiers):
     assert r["ok"], r
 
 
+# K4's sorted row-tile kernel (T > 1): (n, n_out, segments, positions a
+# segment, position range before the offset, offsets, distinct positions)
+K4_SORTED = {
+    "duplicates": (5000, 8192, 8, 4000, (0, 5000), (0,), False),
+    "one_segment": (3000, 4096, 1, 2500, (0, 3000), (0,), False),
+    "40_segments": (20000, 32768, 40, 15000, (0, 20000), (0,), True),
+    "120_segments": (3000, 4096, 120, 2000, (0, 3000), (0,), True),
+    "outside_rows": (2000, 2048, 6, 1500, (-500, 2600), (-300, 0, 700),
+                     False),
+    "ragged_tile": (1000, 1024, 16, 900, (0, 1000), (0,), True),
+    "wide_n_out": (300, 4096, 5, 250, (0, 300), (0,), True),
+    "skewed": (30000, 32768, 12, 6000, (0, 30000), (0,), False),
+    "skewed_120": (3000, 4096, 120, 1500, (0, 3000), (0,), False),
+}
+
+
+def _k4_sorted_parts(kind, seed):
+    """Host (positions, start, stop, offset) of one K4_SORTED case: each
+    segment a slice (start > 0 past a few leading positions) of a sorted
+    array, an empty slice among them."""
+    import numpy as np
+    n, _, nseg, per, (lo, hi), offs, distinct = K4_SORTED[kind]
+    rng = np.random.default_rng(seed)
+    parts = []
+    for j in range(nseg):
+        if distinct:
+            pos = rng.choice(np.arange(lo, hi), min(per, hi - lo), False)
+        elif kind.startswith("skewed"):  # 90% of hits in the first 5% of rows
+            head = rng.integers(lo, lo + (hi - lo) // 20, per * 9 // 10)
+            pos = np.concatenate([head, rng.integers(lo, hi, per // 10)])
+        else:
+            pos = rng.integers(lo, hi, per)
+        pos = np.sort(pos.astype(np.int64))
+        a = int(rng.integers(0, 5))
+        b = a if j == nseg // 2 and nseg > 1 else int(pos.shape[0])
+        parts.append((pos, a, b, int(offs[j % len(offs)])))
+    return parts
+
+
+@pytest.mark.parametrize("kind", list(K4_SORTED))
+@pytest.mark.parametrize("threshold", [2, 3, 7, "above"])
+def test_t_occurrence_sorted_kernel(dev, kind, threshold):
+    """K4 at T > 1 over sorted segments, one launch of the row-tile
+    kernel: duplicate positions, 1, 40 and 120 segments (past the 96 the
+    parameters hold: the table goes to the device), positions outside
+    [0, n) after their offsets, n not a multiple of the tile, n_out far
+    past n, hits crowded into a few tiles (the interpolated windows miss
+    rows; with 120 such segments a tile's misses overflow their list and
+    the tile is counted exactly), T above the segment count; and the same
+    segments unmarked, which take the scatter kernel."""
+    from repro_torch.kernels import fuzzy_ops as FO
+    n, n_out, nseg = K4_SORTED[kind][:3]
+    T = nseg + 1 if threshold == "above" else threshold
+    parts = _k4_sorted_parts(kind, seed=nseg + T)
+    for sorted_ in (True, False):
+        case = SC._k4(SC.dev_segments(parts, dev, sorted_), n, n_out, T,
+                      kind)
+        r = SC.run_case(case, timed=False)
+        assert r["ok"], r
+        before = (FO.tocc_cuda.launches, FO.tocc_cuda.launches_sorted)
+        case["run"]()
+        torch.cuda.synchronize()
+        assert FO.tocc_cuda.launches == before[0] + 1
+        assert FO.tocc_cuda.launches_sorted == before[1] + sorted_
+
+
+# K5 queries: the word boundaries of the bit-parallel kernel (32 and 64
+# code points) and past them (the DP); repeated characters, Latin-1 and
+# CJK code points (the Peq hash)
+def _k5_query(m, kind, seed):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    if kind == "cjk":               # m distinct code points above 255
+        return "".join(chr(0x4E00 + 37 * k) for k in rng.permutation(m))
+    return "".join(rng.choice(list("Uab é中"), m))
+
+
+@pytest.mark.parametrize("m", [0, 1, 15, 31, 32, 33, 63, 64, 65, 100])
+@pytest.mark.parametrize("L", [2, 9, 40, 130])
+@pytest.mark.parametrize("kind", ["mixed", "cjk"])
+def test_edit_distance_bit_parallel(dev, m, L, kind):
+    """K5 against its plain DP at every d in (0, 1, 3, 1000): candidates
+    shorter and longer than the query, empty ones, rows of 2 code points
+    (no 16-byte vectors) up to 130 (several chunks)."""
+    import numpy as np
+    query = _k5_query(m, kind, seed=m + L)
+    rng = np.random.default_rng(m * L + 1)
+    strs = SC._random_strings(rng, 300, L, "Uab é中一严") + [
+        "", query[:L]]
+    for d in (0, 1, 3, 1000):
+        r = SC.run_case(SC.k5_case(strs, query, d, dev), timed=False)
+        assert r["ok"], r
+
+
 @pytest.mark.parametrize("B,L", [(1, 0), (5, 3), (33, 20), (1000, 70)])
 @pytest.mark.parametrize("query", ["", "Nmb", "User Number 123",
                                    "é" * 63, "User Number 123" * 5])
@@ -98,7 +194,7 @@ def test_bitset_intersect_kernel(dev, R, W, P):
     assert r["ok"], r
 
 
-@pytest.mark.parametrize("i", range(10))
+@pytest.mark.parametrize("i", range(12))
 def test_main_path_shapes(dev, i):
     r = SC.run_case(SC.main_path_cases(dev)[i], timed=False)
     assert r["ok"], r
@@ -146,6 +242,29 @@ def test_query_path_on_card_equals_cpu(dev):
     for k in ("range_mask", "fused_filter_aggregate", "sorted_intersect_mask",
               "t_occurrence_mask"):
         assert counts[k] > 0, k
+
+
+@pytest.mark.parametrize("n,parts", DOUBLE_SIZES)
+def test_double_aggregates_on_card_equal_cpu_bits(dev, n, parts):
+    """sum, avg, min and max of a DOUBLE field on the card (K2, its
+    float64 sums folded in the reference's window order) equal the CPU
+    port's (the plain version, in the same order) by exact repr."""
+    import types
+    from _torch_doubles import double_dataset, double_plans
+    from repro_torch.core import adm, algebra
+    from repro_torch.storage import dataset
+    from repro_torch.storage.query import run_query
+    pkg = types.SimpleNamespace(adm=adm, dsm=dataset, A=algebra)
+    out = {}
+    SC.reset_launch_counts()
+    for name in ("cuda", "cpu"):
+        repro_torch.set_device(name)
+        ds = double_dataset(pkg, n, parts)
+        out[name] = [repr(run_query(p, ds, vectorize=True)[0])
+                     for p in double_plans(algebra).values()]
+    repro_torch.set_device("cuda")
+    assert out["cuda"] == out["cpu"]
+    assert SC.launch_counts()["fused_filter_aggregate"] > 0
 
 
 def test_fuzzy_path_on_card_equals_cpu(dev):
@@ -337,6 +456,19 @@ def test_filter_aggregate_one_launch(dev, n, preds, aggs, variant):
             else:
                 info = torch.iinfo(torch.int64)
                 assert (mn, mx) == (info.max, info.min)
+
+
+@pytest.mark.parametrize("n", [1, 1000, 65536, (1 << 19) + 3,
+                               (1 << 21) + 5])
+@pytest.mark.parametrize("preds", [[], ["ts", "id"]])
+def test_filter_aggregate_float64_sum_order(dev, n, preds):
+    """K2's float64 sums over NaN-free columns equal the plain version's
+    (``tree_sum``, the reference's order) bit for bit: one node, one and
+    two upper levels of the window tree (2**21 + 5 rows: 2,049 nodes),
+    with and without a predicate."""
+    r = SC.run_case(SC.k2_case(n, preds, ["f64n", "id", "f64n"], seed=n,
+                               dev=dev), timed=False)
+    assert r["ok"] and r["max_abs_err"] == 0.0, r
 
 
 @pytest.mark.parametrize("B,H,KV,hd,Sc", [(2, 8, 4, 32, 256),

@@ -36,6 +36,9 @@ from repro_torch.storage import dataset as P_dsm  # noqa: E402
 from repro_torch.storage import query as P_q  # noqa: E402
 from repro_torch.storage.carry import dataset_from_reference  # noqa: E402
 
+from _torch_doubles import (DOUBLE_SIZES, double_dataset,  # noqa: E402
+                            double_plans)
+
 PORT = types.SimpleNamespace(A=P_A, adm=P_adm, fn=P_fn, lsm=P_lsm,
                              dsm=P_dsm, run_query=P_q.run_query, ts=P_ts)
 
@@ -377,3 +380,57 @@ def test_dataset_from_reference(REF, tinysocial):
         rows_r, _ = REF.run_query(table3_plans(REF.A)[name], ref,
                                   vectorize=True)
         _assert_rows_agree(rows_p, rows_r)
+
+
+# ---------------------------------------------------------------------------
+# float64 aggregates: the reference's exact bits
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def double_datasets(REF):
+    return {n: (double_dataset(PORT, n, parts), double_dataset(REF, n, parts))
+            for n, parts in DOUBLE_SIZES}
+
+
+@pytest.mark.parametrize("n", [n for n, _ in DOUBLE_SIZES])
+@pytest.mark.parametrize("plan", list(double_plans(P_A)))
+def test_double_aggregates_equal_reference_bits(REF, double_datasets, n,
+                                                plan):
+    """The port's float64 sum folds in the reference's (XLA's) order, so
+    sum, avg, min and max equal the reference's by exact repr, not within
+    a tolerance."""
+    port, ref = double_datasets[n]
+    rows_p, ex_p = PORT.run_query(double_plans(PORT.A)[plan], port,
+                                  vectorize=True)
+    rows_r, _ = REF.run_query(double_plans(REF.A)[plan], ref, vectorize=True)
+    assert ex_p.stats.rows_vectorized > 0 and ex_p.stats.rows_fallback == 0
+    assert repr(rows_p) == repr(rows_r)
+
+
+def test_tree_sum_is_the_window_order():
+    """``tree_sum`` against a scalar transcription of the window order,
+    and independent of the pow2 length the values are padded to."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.columnar_ops import tree_sum
+
+    def scalar(xs):
+        while True:
+            xs = xs + [0.0] * (-len(xs) % 32)
+            sums = []
+            for w in range(0, len(xs), 32):
+                s = 0.0
+                for v in xs[w:w + 32]:
+                    s += v
+                sums.append(s)
+            if len(sums) == 1:
+                return sums[0]
+            xs = sums
+    rng = np.random.default_rng(7)
+    for n in (1, 31, 33, 1000, 1025, 40000):
+        x = rng.standard_normal(n) * 1e3
+        want = scalar(x.tolist())
+        assert float(tree_sum(torch.from_numpy(x))) == want
+        padded = np.zeros(1 << (n - 1).bit_length() + 3)
+        padded[:n] = x
+        assert float(tree_sum(torch.from_numpy(padded))) == want
