@@ -7,12 +7,16 @@ path's n = 2**19 and K5 (edit distances) at the fuzzy path's 2**16 names
 (``selfcheck.main_path_cases``), K4 (T-occurrence count) at T > 1: the
 columnar T = 3 case, the 16-tier T = 13 case and the ngram probe's own
 shape at T = 13 and 7 (built here for a tree that predates
-``selfcheck.k4_path_case``).
+``selfcheck.k4_path_case``), K3 (sorted intersect mask) at the LSM
+merge's n = 2**18 union keys and m = 2**16 component keys, and K6 (set
+intersection counts) at the Jaccard select's 2**7 pairs of width 32 and
+the wide-vocabulary FuzzyJoin's 2**17 pairs of width 67.
 
 Usage:  python scripts/time_model_kernels.py [--src DIR [--src DIR]]
             [--kernels rmsnorm,lsm_decode_attention,flash_attention,
                        fused_filter_aggregate,t_occurrence_mask,
-                       edit_distances] [--iters 50]
+                       edit_distances,sorted_intersect_mask,
+                       set_intersect_counts] [--iters 50]
 
 Each ``--src`` is a directory holding a ``repro_torch`` package (the
 default is this checkout's ``src``).  Every tree runs in a process of its
@@ -41,13 +45,17 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 # selfcheck kernel name -> substrings of the names of its device work (K4's
-# scatter route also clears its count array)
+# scatter route also clears its count array; every K3 and K6 kernel's name
+# holds "intersect", and A7's never runs in their cases)
 KERNELS = {"rmsnorm": ("rmsnorm",), "lsm_decode_attention": ("decode_partial",),
            "flash_attention": ("flash_",), "fused_filter_aggregate": ("agg_",),
            "t_occurrence_mask": ("tocc_", "Memset"),
-           "edit_distances": ("edit_distance",)}
+           "edit_distances": ("edit_distance",),
+           "sorted_intersect_mask": ("intersect",),
+           "set_intersect_counts": ("intersect",)}
 SERVE = ("rmsnorm", "lsm_decode_attention", "flash_attention")
-MAIN = ("fused_filter_aggregate", "edit_distances")
+MAIN = ("fused_filter_aggregate", "edit_distances", "sorted_intersect_mask",
+        "set_intersect_counts")
 
 
 def k4_cases(SC, FO, dev) -> list:

@@ -45,7 +45,8 @@ from .columnar_ops import _prep_bounds
 __all__ = ["KERNELS", "SUM_RTOL", "MODEL_RTOL", "BF16_RTOL",
            "launch_counts", "reset_launch_counts", "launch_splits",
            "k1_case", "k2_case",
-           "k3_case", "k4_case", "k4_path_case", "k5_case", "k6_case",
+           "k3_arrays", "k3_case", "k4_case", "k4_path_case", "k5_case",
+           "k6_arrays", "k6_case", "K3_CANDS", "K6_LENS",
            "a7_case", "k7_case",
            "k8_case", "k9_case", "main_path_cases", "serve_cases",
            "run_case", "device_ms", "profiler_works"]
@@ -246,24 +247,80 @@ def _mask_compare(got: torch.Tensor, ref: torch.Tensor) -> float:
     return 0.0 if torch.equal(got, ref) else 1.0
 
 
-def k3_case(n: int, m: int, seed: int, dev: torch.device,
-            dtype: torch.dtype = torch.int64) -> Dict[str, Any]:
-    """Merge shape: ``n`` union keys, one component's ``m`` keys (every
-    component key is in the union, as in sorted_merge_take)."""
+def _edge_pad(x: np.ndarray) -> np.ndarray:
+    """``x`` padded to a power of two by repeating its last element, as
+    ``device_pool.padded(x, "edge")`` pads K3's operands."""
+    np2 = 1 << max(0, int(x.shape[0]) - 1).bit_length()
+    return np.concatenate([x, np.full(np2 - x.shape[0], x[-1], x.dtype)])
+
+
+K3_CANDS = ("subset", "wide", "gaps", "shuffled")
+
+
+def k3_arrays(n: int, m: int, seed: int, dtype: Any = np.int64,
+              cands: str = "subset", pad: bool = False
+              ) -> Tuple[np.ndarray, int, np.ndarray]:
+    """(keys, n, cands) for K3: ``n`` sorted distinct keys and about
+    ``m`` sorted candidates.  ``cands`` picks their shape:
+
+    - ``"subset"``: the merge shape, ``m`` of the keys (every component key
+      is in the union, as in sorted_merge_take);
+    - ``"wide"``: the PK-bitmap shape, candidates drawn over the keys'
+      range independently of them, so few are keys and a tile's window is
+      ``m / n`` times the tile;
+    - ``"gaps"``: candidates only in two narrow stretches, so most tiles
+      hold none of them and some lie past every candidate;
+    - ``"shuffled"``: the ``"wide"`` candidates, the keys out of order
+      (outside K3's contract; the kernel searches such keys from global
+      memory and stays exact).
+
+    ``pad`` repeats each array's last element to a power of two, as the
+    device pool does (duplicates at both arrays' ends)."""
     rng = np.random.default_rng(seed)
-    union = np.unique(rng.integers(0, 4 * n, 2 * n, dtype=np.int64))[:n]
-    n = int(union.shape[0])
-    comp = np.sort(rng.choice(union, m, replace=False))
-    if dtype == torch.float64:
-        union, comp = union.astype(np.float64), comp.astype(np.float64)
-    keys = torch.from_numpy(union).to(dev)
-    cands = torch.from_numpy(comp).to(dev)
-    return {"kernel": "sorted_intersect_mask", "label": f"n={n} m={m}",
-            "run": lambda: CO.sorted_intersect_cuda(keys, n, cands),
-            "plain": lambda: CO.sorted_intersect_plain(keys, n, cands),
-            "library": lambda: torch.isin(keys, cands),
+    if cands == "subset":
+        keys = np.unique(rng.integers(0, 4 * n, 2 * n, dtype=np.int64))[:n]
+        n = int(keys.shape[0])
+        cs = np.sort(rng.choice(keys, m, replace=False))
+    elif cands in ("wide", "shuffled"):
+        span = 2 * max(n, m)
+        keys = np.unique(rng.integers(0, span, n, dtype=np.int64))
+        cs = np.unique(rng.integers(0, span, m, dtype=np.int64))
+    elif cands == "gaps":
+        keys = np.unique(rng.integers(0, 8 * n, n, dtype=np.int64))
+        mid = keys[(keys >= 2 * n) & (keys < 3 * n)]
+        cs = np.unique(np.concatenate([
+            rng.choice(mid if mid.size else keys[:1], m // 2),
+            rng.integers(5 * n, 5 * n + max(1, n // 8), m - m // 2)]))
+    else:
+        raise ValueError(f"k3_arrays: cands must be one of {K3_CANDS}")
+    keys, cs = keys.astype(dtype), cs.astype(dtype)
+    if cands == "shuffled":
+        rng.shuffle(keys)
+    n = int(keys.shape[0])
+    if pad:
+        keys, cs = _edge_pad(keys), _edge_pad(cs)
+    return keys, n, cs
+
+
+def k3_case(n: int, m: int, seed: int, dev: torch.device,
+            dtype: torch.dtype = torch.int64, cands: str = "subset",
+            pad: bool = False) -> Dict[str, Any]:
+    """K3 on ``k3_arrays``' inputs; the defaults give the merge shape
+    (``n`` union keys, one component's ``m`` keys)."""
+    keys_np, n, cands_np = k3_arrays(
+        n, m, seed, np.float64 if dtype == torch.float64 else np.int64,
+        cands, pad)
+    keys = torch.from_numpy(keys_np).to(dev)
+    cands_t = torch.from_numpy(cands_np).to(dev)
+    n_out, m = int(keys.shape[0]), int(cands_t.shape[0])
+    label = f"n={n} m={m}" + (f" n_out={n_out}" if n_out != n else "") \
+        + (f" {cands}" if cands != "subset" else "")
+    return {"kernel": "sorted_intersect_mask", "label": label,
+            "run": lambda: CO.sorted_intersect_cuda(keys, n, cands_t),
+            "plain": lambda: CO.sorted_intersect_plain(keys, n, cands_t),
+            "library": lambda: torch.isin(keys, cands_t),
             "compare": _mask_compare,
-            "bytes": 8 * n + 8 * m + n,
+            "bytes": 8 * n_out + 8 * m + n_out,
             "ops": n * max(1, math.ceil(math.log2(max(m, 2))))}
 
 
@@ -398,11 +455,18 @@ def _random_strings(rng: np.random.Generator, B: int, L: int,
     return ["".join(rng.choice(list(alphabet), int(n))) for n in lens]
 
 
-def k6_case(P: int, s1: int, s2: int, vocab: int, seed: int,
-            dev: torch.device) -> Dict[str, Any]:
-    """``P`` pairs of sorted distinct code sets drawn from ``vocab``
-    codes (int64; above 2**24 when ``vocab`` is), a rows masked by their
-    lengths, b rows padded with the int64 sentinel."""
+K6_LENS = ("subset", "edge")
+
+
+def k6_arrays(P: int, s1: int, s2: int, vocab: int, seed: int,
+              unsorted_a: bool = False, lens: str = "subset"
+              ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(a, alens, b) for K6: ``P`` pairs of sorted distinct code sets
+    drawn from ``vocab`` codes (int64; above 2**24 when ``vocab`` is), a
+    rows masked by their lengths, b rows padded with the int64 sentinel.
+    ``unsorted_a`` shuffles each a row's live prefix; ``lens="edge"``
+    sets every third length to 0 and every third (from the second) above
+    ``s1``, which makes the row's zero fill live."""
     rng = np.random.default_rng(seed)
     S = s1 + s2
     # one sorted distinct code run per pair; a and b keep random subsets
@@ -415,22 +479,47 @@ def k6_case(P: int, s1: int, s2: int, vocab: int, seed: int,
         keep = rng.random((P, S)) < rng.random((P, 1))
         order = np.argsort(~keep, axis=1, kind="stable")
         mat = np.take_along_axis(run, order, axis=1)[:, :width].copy()
-        lens = np.minimum(keep.sum(1), width).astype(np.int64)
-        mat[np.arange(width)[None, :] >= lens[:, None]] = fill
-        return mat, lens
+        lens_ = np.minimum(keep.sum(1), width).astype(np.int64)
+        mat[np.arange(width)[None, :] >= lens_[:, None]] = fill
+        return mat, lens_
     a, alens = subset(s1, 0)
     b, _ = subset(s2, FO._SENTINEL)
-    at, bt = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
-    lt = torch.from_numpy(alens).to(dev)
-    live = int(alens.sum())
+    if unsorted_a:
+        for p in range(P):
+            rng.shuffle(a[p, :alens[p]])
+    if lens == "edge":
+        alens[0::3] = 0
+        alens[1::3] = s1 + 5
+    elif lens != "subset":
+        raise ValueError(f"k6_arrays: lens must be one of {K6_LENS}")
+    return a, alens, b
+
+
+def k6_case(P: int, s1: int, s2: int, vocab: int, seed: int,
+            dev: torch.device, unsorted_a: bool = False,
+            lens: str = "subset", offset: bool = False) -> Dict[str, Any]:
+    """K6 on ``k6_arrays``' inputs; ``offset`` hands the kernel views
+    that start one row into their storage (8 bytes off 16 where the row
+    width is odd)."""
+    a, alens, b = k6_arrays(P, s1, s2, vocab, seed, unsorted_a, lens)
+
+    def put(x: np.ndarray) -> torch.Tensor:
+        if not offset:
+            return torch.from_numpy(x).to(dev)
+        return torch.from_numpy(np.concatenate([x[:1], x])).to(dev)[1:]
+    at, bt, lt = put(a), put(b), put(alens)
+    live = int(np.minimum(alens, s1).sum())
 
     def library():
         pos = torch.searchsorted(bt, at)
         hit = bt.gather(1, pos.clamp(max=s2 - 1)) == at
         return (hit & (torch.arange(s1, device=dev)[None, :]
                        < lt[:, None])).sum(1)
-    return {"kernel": "set_intersect_counts",
-            "label": f"P={P} S1={s1} S2={s2} vocab={vocab}",
+    label = f"P={P} S1={s1} S2={s2} vocab={vocab}" \
+        + (" unsorted a" if unsorted_a else "") \
+        + (f" lens {lens}" if lens != "subset" else "") \
+        + (" offset views" if offset else "")
+    return {"kernel": "set_intersect_counts", "label": label,
             "run": lambda: FO.inter_cuda(at, lt, bt),
             "plain": lambda: FO.inter_plain(at, lt, bt),
             "library": library,

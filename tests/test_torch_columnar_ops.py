@@ -211,6 +211,125 @@ def test_sorted_intersect_empty(RK):
             RK.sorted_intersect_mask(keys, cands, force_pallas=False))
 
 
+# ---------------------------------------------------------------------------
+# K3's tiling (csrc/sorted_intersect.cu), transcribed to settle it here
+# ---------------------------------------------------------------------------
+
+def _narrow(a, b, s, cnt):
+    """``narrow``: the probes a + t*s for t < cnt held c < x, the one at
+    t = cnt failed or left [a, b)."""
+    if a < b:
+        hi = min(a + cnt * s, b)
+        a, b = (a + (cnt - 1) * s + 1, hi) if cnt else (a, a)
+    return a, b
+
+
+def _k3_window(c, lo, hi, probes, stage):
+    """The kernel's window search: a first round of ``probes`` probes at
+    fixed places over all of ``c``, then rounds over both brackets while
+    [a0, b1] exceeds the stage and a bracket is open.  Returns (L, H,
+    rounds)."""
+    m = c.shape[0]
+    brackets = [[0, m], [0, m]]
+    rounds = 0
+    while True:
+        for br, x in zip(brackets, (lo, hi)):
+            s = -(-(br[1] - br[0]) // probes) if rounds else -(-m // probes)
+            i = br[0] + np.arange(probes) * s
+            p = i < br[1]
+            p[p] = c[i[p]] < x
+            cnt = int(p.sum())
+            assert p[:cnt].all()         # the probes below x are a prefix
+            br[:] = _narrow(br[0], br[1], s, cnt)
+        rounds += 1
+        (a0, b0), (a1, b1) = brackets
+        H = b1 + 1 if b1 < m else m
+        if H - a0 <= stage or (a0 >= b0 and a1 >= b1):
+            return a0, max(H, a0), rounds
+
+
+def _k3_tiles(keys, n, cands, tile, probes, stage):
+    """A transcription of ``sorted_intersect_tile_kernel``: per tile of
+    ``tile`` keys, a window that holds lb(first) to lb(last) by block-wide
+    probes, walked in chunks of ``stage`` candidates with the kernel's
+    halving search; keys outside [first, last] searched over all
+    candidates.  Returns (mask over keys, counts of what ran)."""
+    m = cands.shape[0]
+    out = np.zeros(keys.shape[0], dtype=bool)
+    ran = {"tiles": 0, "chunks": 0, "outside": 0, "global": 0, "rounds": 0}
+    for t0 in range(0, n, tile):         # tiles past n are written false
+        t_end = min(t0 + tile, n)
+        k = keys[t0:t_end]
+        lo, hi = keys[t0], keys[t_end - 1]
+        L, H, rounds = _k3_window(cands, lo, hi, probes, stage)
+        ran["tiles"] += 1
+        ran["rounds"] = max(ran["rounds"], rounds)
+        ran["outside"] += bool(m and (lo > cands[-1] or hi < cands[0]))
+        cov = (lo <= k) & (k <= hi)
+        hit = np.zeros(k.shape[0], dtype=bool)
+        for cs in range(L, H, stage):
+            win = cands[cs:min(cs + stage, H)]
+            at = np.zeros(k.shape[0], dtype=np.int64)
+            w = win.shape[0]             # the last candidate <= each key
+            while w > 1:
+                half = w >> 1
+                at = np.where(win[at + half] <= k, at + half, at)
+                w -= half
+            hit |= cov & (win[at] == k)
+            ran["chunks"] += 1
+        for j in np.flatnonzero(~cov):   # from global memory
+            a, b = 0, m
+            while a < b:
+                mid = a + ((b - a) >> 1)
+                a, b = (mid + 1, b) if cands[mid] < k[j] else (a, mid)
+            hit[j] = a < m and cands[a] == k[j]
+            ran["global"] += 1
+        out[t0:t_end] = hit
+    return out, ran
+
+
+# (n, m, tile, probes, stage): the kernel's own tiling, and a small one
+# whose windows span many tiles and chunks
+K3_TILINGS = [(5000, 60_000, 1024, 512, 4096), (300, 4000, 16, 4, 8)]
+
+
+@pytest.mark.parametrize("cands,dtype", [
+    ("subset", np.int64), ("wide", np.int64), ("gaps", np.int64),
+    ("subset", np.float64), ("wide", np.float64), ("shuffled", np.int64)])
+@pytest.mark.parametrize("pad", [False, True])
+def test_sorted_intersect_tiling_transcription(RK, cands, dtype, pad):
+    """The tiling of csrc/sorted_intersect.cu, transcribed, against the
+    plain version and the reference's x64 path on the GPU tests' inputs
+    (``selfcheck.k3_arrays``): tile edges with n not a multiple of the
+    tile, the window search, chunked windows, tiles past every
+    candidate, edge padding on both sides, keys out of order (plain version only: the reference's
+    x64 path needs sorted keys)."""
+    from repro_torch.kernels import selfcheck as SC
+    import torch
+    for n0, m0, tile, probes, stage in K3_TILINGS:
+        m0 = min(m0, n0) if cands == "subset" else m0
+        keys, n, cs = SC.k3_arrays(n0, m0, n0 + m0, dtype, cands, pad)
+        got, ran = _k3_tiles(keys, n, cs, tile, probes, stage)
+        plain = PK.sorted_intersect_plain(torch.from_numpy(keys), n,
+                                          torch.from_numpy(cs)).numpy()
+        np.testing.assert_array_equal(got, plain)
+        assert got[n:].sum() == 0
+        if cands != "shuffled":
+            np.testing.assert_array_equal(got[:n], RK.sorted_intersect_mask(
+                keys[:n], cs, force_pallas=False))
+        assert ran["tiles"] == -(-n // tile)
+        assert ran["rounds"] <= math.ceil(math.log(max(cs.shape[0], 2),
+                                                   probes)) + 1
+        if cands == "wide":              # windows of many chunks
+            assert ran["chunks"] > 2 * ran["tiles"]
+        if cands == "gaps":             # tiles past or before every cand
+            assert ran["outside"] > 0
+        if cands == "shuffled":
+            assert ran["global"] > 0
+        else:
+            assert ran["global"] == 0
+
+
 def _merge_case(kind, seed):
     rng = np.random.default_rng(seed)
     comps = []

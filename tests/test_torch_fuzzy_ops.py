@@ -366,6 +366,146 @@ def test_set_intersect_counts_match_pallas_interpret(RF):
 
 
 # ---------------------------------------------------------------------------
+# K6's batches (csrc/set_intersect.cu), transcribed to settle them here
+# ---------------------------------------------------------------------------
+
+def _k6_batch(P, s1, s2, threads, items, stage_bytes=32 << 10,
+              stage_max=200 << 10, sms=132):
+    """``rt_set_intersect``'s choice: (pairs a batch, b rows staged)."""
+    staged = 8 * s2 <= stage_max
+    B = threads * items // s1 if s1 else threads * items
+    if staged and s2:
+        B = min(B, stage_bytes // (8 * s2))
+    B = min(B, -(-P // (2 * sms)))
+    if B >= 2:
+        B &= ~1
+    return max(B, 1), staged
+
+
+def _stage_copies(src, n):
+    """``stage_span``'s copies of an n-element span that starts ``src``
+    elements (8 bytes each) into 16-byte-aligned storage: (first element,
+    count) each, the 2-element ones 16-byte copies."""
+    head = src & 1
+    if n <= head:
+        return [(0, 1)] if n == 1 else []
+    out = [(0, 1)] if head else []
+    out += [(head + 2 * c, 2) for c in range((n - head) >> 1)]
+    if (n - head) & 1:
+        out.append((n - 1, 1))
+    return out
+
+
+def _k6_batches(a, alens, b, threads=256, items=4, offset=0):
+    """A transcription of ``set_intersect_batch_kernel``: batches of B
+    pairs, the b span staged by 8- and 16-byte copies into a buffer
+    shifted to the span's offset mod 16 bytes (``offset``: the element the
+    storage starts at), flat (pair, j) items stepped as the kernel steps
+    them, the halving search for the last code <= x, and the segmented
+    ballot's runs.  Returns the counts."""
+    P, s1 = a.shape
+    s2 = b.shape[1]
+    B, staged = _k6_batch(P, s1, s2, threads, items)
+    w = max(s1, 1)
+    q, r = threads // w, threads % w
+    af, bf = a.reshape(-1), b.reshape(-1)
+    out = np.zeros(P, dtype=np.int64)
+    lanes = np.arange(32)
+    for p0 in range(0, P, B):
+        nb = min(B, P - p0)
+        n = nb * s2
+        rows = bf[p0 * s2:p0 * s2 + n]
+        if staged:
+            src = offset + p0 * s2
+            shift = src & 1          # the span lands one element in when
+            buf = np.full(n + 1, -7, dtype=np.int64)   # src is 8 mod 16
+            done = 0
+            for e, size in _stage_copies(src, n):
+                if size == 2:        # 16 bytes, aligned on both sides
+                    assert (src + e) % 2 == 0 and (shift + e) % 2 == 0
+                buf[shift + e:shift + e + size] = rows[e:e + size]
+                done += size
+            assert done == n
+            rows = buf[shift:shift + n]
+        rows = rows.reshape(nb, s2)
+        cnt = np.zeros(nb, dtype=np.int64)
+        nitems = nb * s1
+        base = 0
+        while base < nitems:
+            i0 = base + np.arange(threads)
+            pair, j = i0 // w, i0 % w
+            for k in range(items):
+                i = i0 + k * threads
+                assert (pair == i // w).all() and (j == i % w).all()
+                live = i < nitems
+                live[live] = j[live] < alens[p0 + pair[live]]
+                x = np.zeros(threads, dtype=np.int64)
+                x[live] = af[p0 * s1 + i[live]]
+                row = np.where(live, pair, 0)   # a dead item reads row 0
+                at = np.zeros(threads, dtype=np.int64)
+                width = s2                  # the last code <= x
+                while width > 1:
+                    half = width >> 1
+                    at = np.where(rows[row, at + half] <= x, at + half, at)
+                    width -= half
+                hit = live & (s2 > 0)
+                hit[hit] = rows[row[hit], at[hit]] == x[hit]
+                for wp in range(min(threads, max(nitems - i[0], 0) + 31)
+                                // 32):   # warps past the items add nothing
+                    pr = pair[32 * wp:32 * wp + 32]
+                    hits = int((hit[32 * wp:32 * wp + 32] << lanes).sum())
+                    start = np.r_[True, pr[1:] != pr[:-1]]
+                    starts = int((start << lanes).sum())
+                    for lane in np.flatnonzero(start).tolist():
+                        later = starts >> (lane + 1) if lane < 31 else 0
+                        end = lane + (later & -later).bit_length() \
+                            if later else 32
+                        run = ((1 << end) - 1) & ~((1 << lane) - 1)
+                        c = bin(hits & run).count("1")
+                        if c:
+                            assert pr[lane] < nb
+                            cnt[pr[lane]] += c
+                j += r
+                pair += q
+                wrap = j >= w
+                j[wrap] -= w
+                pair[wrap] += 1
+            base += threads * items
+        out[p0:p0 + nb] = cnt
+    return out
+
+
+# (P, S1, S2, threads, items): odd S2 (67, 1), P not a multiple of the
+# batch, a rows past one round of items, S1 = 0, b rows too wide to stage
+K6_SHAPES = [(501, 67, 67, 256, 4), (999, 33, 1, 256, 4),
+             (257, 5, 67, 256, 4), (40, 300, 67, 64, 2), (20, 0, 5, 256, 4),
+             (130, 32, 32, 256, 4), (20, 3, 30_000, 256, 4)]
+
+
+@pytest.mark.parametrize("shape", K6_SHAPES)
+@pytest.mark.parametrize("unsorted_a", [False, True])
+@pytest.mark.parametrize("lens", ["subset", "edge"])
+def test_set_intersect_batches_transcription(RF, shape, unsorted_a, lens):
+    """The batches of csrc/set_intersect.cu, transcribed, against the
+    plain version and the reference's x64 path on the GPU tests' inputs
+    (``selfcheck.k6_arrays``, codes above 2**40): batch spans staged with
+    unaligned heads and tails (an even and an odd storage offset), flat
+    (pair, j) items over unsorted a rows and lengths of 0 and above S1."""
+    import torch
+    from repro_torch.kernels import selfcheck as SC
+    P, s1, s2, threads, items = shape
+    a, alens, b = SC.k6_arrays(P, s1, s2, 1 << 41, P + s2, unsorted_a, lens)
+    plain = PF.inter_plain(torch.from_numpy(a), torch.from_numpy(alens),
+                           torch.from_numpy(b)).numpy()
+    ref = RF.set_intersect_counts_padded(
+        a, alens, b, (b != PF._SENTINEL).sum(1), force_pallas=False)
+    np.testing.assert_array_equal(plain, ref)
+    for offset in (0, 1):
+        got = _k6_batches(a, alens, b, threads, items, offset)
+        np.testing.assert_array_equal(got, plain)
+
+
+# ---------------------------------------------------------------------------
 # A7: bitset popcount; encode_bitsets; Jaccard
 # ---------------------------------------------------------------------------
 

@@ -60,6 +60,36 @@ def test_sorted_intersect_kernel(dev, sizes, dtype):
     assert r["ok"], r
 
 
+@pytest.mark.parametrize("sizes", [(1, 1), (2049, 2048), (5000, 200_000),
+                                   (70_001, 3000)])
+@pytest.mark.parametrize("cands", ["subset", "wide", "gaps"])
+@pytest.mark.parametrize("dtype", [torch.int64, torch.float64])
+@pytest.mark.parametrize("pad", [False, True])
+def test_sorted_intersect_tiles(dev, sizes, cands, dtype, pad):
+    """K3's tiles and windows: candidates that are the keys' subset (the
+    merge), drawn independently of them (PK bitmaps: a window up to ~40
+    tiles of 1,024 keys wide at 5,000 keys over 200,000 candidates) or in
+    two narrow stretches (tiles that hold none, tiles past every
+    candidate); n not a multiple of the tile; both arrays edge-padded to
+    pow2 as the device pool pads them."""
+    n, m = sizes
+    m = min(m, n) if cands == "subset" else m
+    r = SC.run_case(SC.k3_case(n, m, seed=n + m, dev=dev, dtype=dtype,
+                               cands=cands, pad=pad), timed=False)
+    assert r["ok"], r
+
+
+@pytest.mark.parametrize("sizes", [(40, 30), (5000, 9000)])
+def test_sorted_intersect_shuffled_keys(dev, sizes):
+    """Keys out of order (outside K3's contract): a key outside its tile's
+    [first, last] is searched from global memory, so the mask stays
+    exact."""
+    n, m = sizes
+    r = SC.run_case(SC.k3_case(n, m, seed=n, dev=dev, cands="shuffled",
+                               pad=True), timed=False)
+    assert r["ok"], r
+
+
 @pytest.mark.parametrize("threshold", [1, 2, 3])
 @pytest.mark.parametrize("sizes,tiers", [((8, 8), 1), ((1000, 3000), 4),
                                          ((64_000, 40_000), 40)])
@@ -184,6 +214,35 @@ def test_edit_distance_kernel(dev, B, L, query):
 def test_set_intersect_kernel(dev, P, s1, s2, vocab):
     r = SC.run_case(SC.k6_case(P, s1, s2, vocab, seed=P, dev=dev),
                     timed=False)
+    assert r["ok"], r
+
+
+@pytest.mark.parametrize("P,s1,s2", [(3, 1, 1), (999, 33, 1),
+                                     (1001, 67, 67), (257, 5, 67),
+                                     (130, 1500, 67), (40, 16, 10_000),
+                                     (16, 8, 60_000)])
+@pytest.mark.parametrize("unsorted_a", [False, True])
+@pytest.mark.parametrize("lens", ["subset", "edge"])
+@pytest.mark.parametrize("vocab", [1 << 20, 1 << 41])
+def test_set_intersect_batches(dev, P, s1, s2, unsorted_a, lens, vocab):
+    """K6's batches: odd S2 (67, 1), P not a multiple of the batch, a rows
+    longer than a round of items (S1 = 1,500), a b row staged past 48 KB
+    (S2 = 10,000) and one too wide to stage (S2 = 60,000: searched from
+    global memory), unsorted a rows, lengths of 0 and above S1, codes
+    below 2**21 and above 2**40."""
+    r = SC.run_case(SC.k6_case(P, s1, s2, vocab, seed=P + s2, dev=dev,
+                               unsorted_a=unsorted_a, lens=lens),
+                    timed=False)
+    assert r["ok"], r
+
+
+@pytest.mark.parametrize("P,s1,s2", [(1001, 67, 67), (6, 3, 5)])
+def test_set_intersect_unaligned_views(dev, P, s1, s2):
+    """Operands that start 8 bytes off a 16-byte boundary, as a view one
+    row into its storage gives them (odd row widths): every batch's b span
+    peels its first element (and an odd tail its last)."""
+    r = SC.run_case(SC.k6_case(P, s1, s2, 1 << 20, seed=P, dev=dev,
+                               offset=True), timed=False)
     assert r["ok"], r
 
 
