@@ -568,7 +568,7 @@ def main() -> int:
     from repro_torch import obs
     from repro_torch.configs import tinysocial
     from repro_torch.core import adm, algebra
-    from repro_torch.kernels import device_pool, ops, selfcheck
+    from repro_torch.kernels import columnar_ops, device_pool, ops, selfcheck
     from repro_torch.storage import dataset, query
     repro_torch.set_device("cuda")
     # float32 products in full float32 (the PyTorch defaults, stated)
@@ -670,6 +670,8 @@ def main() -> int:
     counts = selfcheck.launch_counts()
     splits = {"columnar": selfcheck.launch_splits()}
     print(f"main: launches {json.dumps(counts)}")
+    seen = sorted(k for k in columnar_ops._SEEN if k[0] in COLUMNAR_PATH)
+    print(f"main: kernel shapes seen {seen}")
     for k in COLUMNAR_PATH:
         check(counts[k] > 0, f"kernel {k} never launched on the main path")
 

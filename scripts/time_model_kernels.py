@@ -8,15 +8,24 @@ path's n = 2**19 and K5 (edit distances) at the fuzzy path's 2**16 names
 columnar T = 3 case, the 16-tier T = 13 case and the ngram probe's own
 shape at T = 13 and 7 (built here for a tree that predates
 ``selfcheck.k4_path_case``), K3 (sorted intersect mask) at the LSM
-merge's n = 2**18 union keys and m = 2**16 component keys, and K6 (set
+merge's n = 2**18 union keys and m = 2**16 component keys, K6 (set
 intersection counts) at the Jaccard select's 2**7 pairs of width 32 and
-the wide-vocabulary FuzzyJoin's 2**17 pairs of width 67.
+the wide-vocabulary FuzzyJoin's 2**17 pairs of width 67, K1 (range mask)
+at the columnar path's n = 2**19 with K = 1 int64 column (the skip-index
+select's timestamp range) and K = 2, and A7 (bitset intersection counts)
+on the operands the two bitset FuzzyJoins of ``chip_smoke.py`` hand it
+(the clustered records' and table 3's tags, found by running the join
+with the wrapper replaced by a recorder), each with its live pairs and
+with the pairs padded to a power of two (what a tree that counts the
+padding launches), and on 2**18 pairs drawn uniformly (the earlier
+runs' case).
 
 Usage:  python scripts/time_model_kernels.py [--src DIR [--src DIR]]
             [--kernels rmsnorm,lsm_decode_attention,flash_attention,
                        fused_filter_aggregate,t_occurrence_mask,
                        edit_distances,sorted_intersect_mask,
-                       set_intersect_counts] [--iters 50]
+                       set_intersect_counts,range_mask,
+                       bitset_intersect_counts] [--iters 50]
 
 Each ``--src`` is a directory holding a ``repro_torch`` package (the
 default is this checkout's ``src``).  Every tree runs in a process of its
@@ -46,13 +55,16 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 # selfcheck kernel name -> substrings of the names of its device work (K4's
 # scatter route also clears its count array; every K3 and K6 kernel's name
-# holds "intersect", and A7's never runs in their cases)
+# holds "intersect": A7's kernel, bitset_intersect_kernel, holds it too but
+# never runs in their cases)
 KERNELS = {"rmsnorm": ("rmsnorm",), "lsm_decode_attention": ("decode_partial",),
            "flash_attention": ("flash_",), "fused_filter_aggregate": ("agg_",),
            "t_occurrence_mask": ("tocc_", "Memset"),
            "edit_distances": ("edit_distance",),
            "sorted_intersect_mask": ("intersect",),
-           "set_intersect_counts": ("intersect",)}
+           "set_intersect_counts": ("intersect",),
+           "range_mask": ("range_mask",),
+           "bitset_intersect_counts": ("bitset_intersect",)}
 SERVE = ("rmsnorm", "lsm_decode_attention", "flash_attention")
 MAIN = ("fused_filter_aggregate", "edit_distances", "sorted_intersect_mask",
         "set_intersect_counts")
@@ -95,6 +107,75 @@ def k4_path_tuples(SC, FO, d: int, seed: int, dev) -> dict:
             "plain": lambda: FO.tocc_plain(segs, n, n_out, T),
             "library": lambda: torch.bincount(flat, minlength=n) >= T,
             "compare": SC._mask_compare, "bytes": 8 * m + n_out, "ops": m}
+
+
+def k1_cases(SC, dev) -> list:
+    """K1 at n = 2**19: the columnar path's one int64 column, and K = 2
+    (main_path_cases' seed)."""
+    return [SC.k1_case(1 << 19, ["ts"], 0, dev),
+            SC.k1_case(1 << 19, ["ts", "id"], 0, dev)]
+
+
+def join_operands(FO, which: str):
+    """(uint32 [R, W] bits, ai, bi) as the FuzzyJoin of ``chip_smoke.py``
+    named ``which`` ("clustered" or "tags") hands them to
+    ``fuzzy_ops.bitset_intersect_counts``."""
+    import numpy as np
+    from repro_torch.data.dedup import FuzzyJoin
+    if which == "clustered":
+        sys.path.insert(0, str(ROOT))
+        from chip_smoke import clustered_records
+        recs, thr = clustered_records(3500, 800, 3), 0.5
+    else:                       # table 3's tags: 1,500 messages' tag sets
+        from repro_torch.configs.tinysocial import gen_messages
+        recs = [(m["message-id"], set(m["tags"]))
+                for m in gen_messages(1500, 200_000, 1)]
+        thr = 0.6
+    got, real = [], FO.bitset_intersect_counts
+
+    def record(bits, ai, bi):
+        got.append((bits, ai, bi))
+        return np.zeros(len(ai), dtype=np.int64)
+    FO.bitset_intersect_counts = record
+    try:
+        FuzzyJoin(threshold=thr).run(recs)
+    finally:
+        FO.bitset_intersect_counts = real
+    return got[-1]
+
+
+def a7_cases(SC, FO, dev) -> list:
+    """A7 on the two bitset joins' operands, live and padded pairs (rows
+    padded to a power of two, as the pool pads them), and on 2**18 pairs
+    drawn uniformly over 4,096 x 32 words (main_path_cases' seed)."""
+    import numpy as np
+    import torch
+    out = []
+    for which in ("clustered", "tags"):
+        bits, ai, bi = join_operands(FO, which)
+        R, W = bits.shape
+        P = int(ai.shape[0])
+        rp, pp = 1 << (R - 1).bit_length(), 1 << (P - 1).bit_length()
+        words = np.zeros((rp, W), dtype=np.uint32)
+        words[:R] = bits
+        bt = torch.from_numpy(words.view(np.int32)).to(dev)
+        idx = [np.zeros(pp, dtype=np.int64) for _ in range(2)]
+        idx[0][:P], idx[1][:P] = ai, bi
+        at, ct = (torch.from_numpy(x).to(dev) for x in idx)
+        for n_pairs, tag in ((P, "live"), (pp, "padded")):
+            a, c = at[:n_pairs], ct[:n_pairs]
+            out.append({
+                "kernel": "bitset_intersect_counts",
+                "label": f"{which} join R={rp} W={W} P={P} {tag} "
+                         f"({n_pairs} pairs)",
+                "run": lambda a=a, c=c, b=bt: FO.popcount_cuda(b, a, c),
+                "plain": lambda a=a, c=c, b=bt: FO.popcount_plain(b, a, c),
+                "library": None, "compare": SC._mask_compare,
+                "bytes": 4 * W * SC.rows_touched(idx[0][:n_pairs],
+                                                 idx[1][:n_pairs])
+                         + 24 * n_pairs, "ops": 3 * W * n_pairs})
+    out.append(SC.a7_case(1 << 12, 32, 1 << 18, 60 / 800, 8, dev))
+    return out
 
 
 def clean_ms(fn, names: tuple, iters: int) -> float:
@@ -141,6 +222,10 @@ def one(src: str, run: int, iters: int, kernels: list) -> int:
                   if c["kernel"] in MAIN]
     if "t_occurrence_mask" in kernels:
         cases += k4_cases(selfcheck, fuzzy_ops, dev)
+    if "range_mask" in kernels:
+        cases += k1_cases(selfcheck, dev)
+    if "bitset_intersect_counts" in kernels:
+        cases += a7_cases(selfcheck, fuzzy_ops, dev)
     for case in cases:
         if case["kernel"] not in kernels:
             continue

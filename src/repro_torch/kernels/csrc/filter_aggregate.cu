@@ -154,96 +154,10 @@ __device__ __forceinline__ int64_t warp_fold(int op, int64_t v) {
   }
 }
 
-// One column's rows of a lane's run: row 64 k + e of the lane is bit
-// 2 k + e, its two validity bytes are v[k], the values are x[2 k + e] as
-// int64 (int64, float64 bits, or int32 codes widened).
-struct Run {
-  uint32_t v[RUN / 2];
-  int64_t x[RUN];
-};
-
-// 4 validity bytes -> 4 bits (byte i nonzero -> bit i)
-__device__ __forceinline__ uint32_t nib(uint32_t w) {
-  const uint32_t nz = (((w & 0x7f7f7f7fu) + 0x7f7f7f7fu) | w) & 0x80808080u;
-  return ((nz >> 7) * 0x01020408u) >> 24;
-}
-// v[2 q] and v[2 q + 1] hold the bytes of bits 4 q .. 4 q + 3
-__device__ __forceinline__ uint32_t valid_bits(const Run& r) {
-  uint32_t bits = 0;
-#pragma unroll
-  for (int q = 0; q < RUN / 4; ++q)
-    bits |= nib(r.v[2 * q] | (r.v[2 * q + 1] << 16)) << (4 * q);
-  return bits;
-}
-
-__device__ __forceinline__ int64_t lo_hi(uint32_t lo, uint32_t hi) {
-  return static_cast<int64_t>(static_cast<uint64_t>(lo) |
-                              (static_cast<uint64_t>(hi) << 32));
-}
-
-// Issue the loads of column c's rows of the lane's run (its first row
-// `base`, rows base + 64 k + e); `vec`: the whole run lies below n and every
-// operand is 16-byte aligned, else the rows below n load one by one.
-__device__ __forceinline__ void load_run(const ColDesc& c, int64_t base,
-                                         int64_t n, bool vec, Run& r) {
-  if (vec) {
-#pragma unroll
-    for (int k = 0; k < RUN / 2; ++k)
-      r.v[k] = __ldg(reinterpret_cast<const unsigned short*>(
-          c.valid + base + 64 * k));
-    if (c.dtype == DT_I32) {
-#pragma unroll
-      for (int k = 0; k < RUN / 2; ++k) {
-        const uint2 w = __ldg(reinterpret_cast<const uint2*>(
-            static_cast<const int32_t*>(c.data) + base + 64 * k));
-        r.x[2 * k] = static_cast<int32_t>(w.x);
-        r.x[2 * k + 1] = static_cast<int32_t>(w.y);
-      }
-    } else {
-#pragma unroll
-      for (int k = 0; k < RUN / 2; ++k) {
-        const uint4 w = __ldg(reinterpret_cast<const uint4*>(
-            static_cast<const int64_t*>(c.data) + base + 64 * k));
-        r.x[2 * k] = lo_hi(w.x, w.y);
-        r.x[2 * k + 1] = lo_hi(w.z, w.w);
-      }
-    }
-    return;
-  }
-#pragma unroll
-  for (int k = 0; k < RUN / 2; ++k) {
-    r.v[k] = 0u;
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int64_t row = base + 64 * k + e;
-      const bool in = row < n;
-      r.v[k] |= (in ? static_cast<uint32_t>(c.valid[row]) : 0u) << (8 * e);
-      r.x[2 * k + e] = !in ? 0
-          : c.dtype == DT_I32
-              ? static_cast<int64_t>(static_cast<const int32_t*>(c.data)[row])
-              : static_cast<const int64_t*>(c.data)[row];
-    }
-  }
-}
-
-// Rows of the run that are valid and inside [lo, hi] (NaN fails both
-// compares, as in x64 jnp)
-__device__ __forceinline__ uint32_t pred_bits(const ColDesc& c,
-                                              const Run& r) {
-  uint32_t in = 0;
-  if (c.dtype == DT_F64) {
-#pragma unroll
-    for (int i = 0; i < RUN; ++i) {
-      const double x = __longlong_as_double(r.x[i]);
-      in |= static_cast<uint32_t>(x >= c.lo_f && x <= c.hi_f) << i;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < RUN; ++i)
-      in |= static_cast<uint32_t>(r.x[i] >= c.lo_i && r.x[i] <= c.hi_i) << i;
-  }
-  return in & valid_bits(r);
-}
+// One column's rows of a lane's run (common.cuh's RowRun: rows
+// 64 k + 2 i + e of the warp's 256, loaded by load_run, tested by
+// pred_bits)
+using Run = RowRun<RUN>;
 
 // Fold the rows of `sel` into one column's (count, sum, min, max), as
 // selects: a row outside `sel` adds 0 and meets the min/max identities

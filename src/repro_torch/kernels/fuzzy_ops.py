@@ -498,6 +498,9 @@ def popcount_plain(bits: torch.Tensor, ai: torch.Tensor,
 def popcount_cuda(bits: torch.Tensor, ai: torch.Tensor,
                   bi: torch.Tensor) -> torch.Tensor:
     """A7 on the card: int64 [P]."""
+    if bits.dim() == 2 and bits.shape[0] >= 2 ** 31:
+        raise ValueError(f"popcount_cuda: {bits.shape[0]} rows; the kernel "
+                         "takes row indices as 32-bit, below 2**31 rows")
     if not (bits.is_cuda and ai.is_cuda and bi.is_cuda
             and bits.dtype == torch.int32 and bits.dim() == 2
             and bits.is_contiguous() and ai.dtype == bi.dtype == torch.int64
@@ -544,10 +547,11 @@ def bitset_intersect_counts(bits: np.ndarray, ai: np.ndarray,
                             bi: np.ndarray) -> np.ndarray:
     """``popcount(bits[ai[p]] & bits[bi[p]])`` per pair (int64): the
     record matrix crosses to the device once and the pair gathers happen
-    inside the kernel.  Index arrays pad to pow2 with row 0 (sliced off)
-    and the record rows to pow2, keeping the shapes stable as the
-    candidate count varies.  The uint32 words travel as int32 (the same
-    bits): PyTorch's uint32 support is partial."""
+    inside the kernel.  Index arrays pad to pow2 with row 0 and the
+    record rows to pow2, keeping the pooled shapes stable as the candidate
+    count varies; the kernel counts the live pairs only.  The uint32
+    words travel as int32 (the same bits): PyTorch's uint32 support is
+    partial."""
     P = int(ai.shape[0])
     if P == 0:
         return np.zeros(0, dtype=np.int64)
@@ -568,13 +572,16 @@ def bitset_intersect_counts(bits: np.ndarray, ai: np.ndarray,
                                np.ascontiguousarray(ai, dtype=np.int64),
                                np.ascontiguousarray(bi, dtype=np.int64)])
     note_shape("bitset_intersect_counts", rp, words.shape[1], pp)
+    # the pooled index buffers keep their pow2 length; only the P live
+    # pairs are counted (the padding pairs' counts were thrown away)
+    ai_t, bi_t = ops[1][:P], ops[2][:P]
     if ops[0].is_cuda:
-        out_t = popcount_cuda(ops[0], ops[1], ops[2])
+        out_t = popcount_cuda(ops[0], ai_t, bi_t)
     else:
-        out_t = popcount_plain(ops[0], ops[1], ops[2])
+        out_t = popcount_plain(ops[0], ai_t, bi_t)
     out = out_t.cpu().numpy()
     _record_dispatch("bitset_intersect_counts", h2d=missed, d2h=[out])
-    return out[:P]
+    return out
 
 
 def jaccard_from_counts(inter: np.ndarray, a_sizes: np.ndarray,

@@ -47,7 +47,9 @@ __all__ = ["KERNELS", "SUM_RTOL", "MODEL_RTOL", "BF16_RTOL",
            "k1_case", "k2_case",
            "k3_arrays", "k3_case", "k4_case", "k4_path_case", "k5_case",
            "k6_arrays", "k6_case", "K3_CANDS", "K6_LENS",
-           "a7_case", "k7_case",
+           "a7_case", "a7_clustered_arrays", "a7_clustered_case",
+           "rows_touched",
+           "k7_case",
            "k8_case", "k9_case", "main_path_cases", "serve_cases",
            "run_case", "device_ms", "profiler_works"]
 
@@ -153,11 +155,22 @@ def reset_launch_counts() -> None:
 # cases: inputs from a numpy seed, on the card
 # ---------------------------------------------------------------------------
 
+def _view(x: np.ndarray, skip: int, dev: torch.device) -> torch.Tensor:
+    """``x`` on the card as a view that starts ``skip`` elements into
+    its storage (0: the tensor itself)."""
+    if not skip:
+        return torch.from_numpy(x).to(dev)
+    return torch.from_numpy(np.concatenate([x[:skip], x])).to(dev)[skip:]
+
+
 def _columns(rng: np.random.Generator, n: int, kinds: List[str],
-             bounds: bool, dev: torch.device) -> list:
+             bounds: bool, dev: torch.device,
+             offset: Tuple[int, int] = (0, 0)) -> list:
     """TinySocial-like columns: int64 epoch-microsecond timestamps (far
-    beyond 2**24), int64 ids, float64 with NaN (or without: "f64n"),
-    int32 dictionary codes."""
+    beyond 2**24), int64 ids, float64 with NaN (or without: "f64n"; or
+    every third row NaN, every other row valid: "nan"), int32 dictionary
+    codes.  ``offset`` (data elements, validity bytes): each column's data
+    and validity are views that start that far into their storage."""
     cols = []
     for kind in kinds:
         valid = rng.random(n) < 0.95
@@ -168,17 +181,21 @@ def _columns(rng: np.random.Generator, n: int, kinds: List[str],
         elif kind == "id":
             x = rng.integers(0, 200_000, n, dtype=np.int64)
             lo, hi = 1_000, 150_000
-        elif kind in ("f64", "f64n"):          # "f64n": no NaN
+        elif kind in ("f64", "f64n", "nan"):   # "f64n": no NaN
             x = rng.normal(1e3, 3e2, n)
             if kind == "f64":
                 x[rng.random(n) < 0.01] = np.nan
+            elif kind == "nan":     # every third row NaN, valid or not
+                x[::3] = np.nan
+                valid[::2] = True
+                valid[1::2] = False
             lo, hi = 900.0, None
         else:                                  # "code": int32 dictionary
             x = rng.integers(0, 50, n).astype(np.int32)
             lo, hi = 5, 40
         blo, bhi = _prep_bounds(x, lo, hi) if bounds else (None, None)
-        cols.append((torch.from_numpy(x).to(dev),
-                     torch.from_numpy(valid).to(dev), blo, bhi))
+        cols.append((_view(x, offset[0], dev), _view(valid, offset[1], dev),
+                     blo, bhi))
     return cols
 
 
@@ -186,11 +203,15 @@ def _col_bytes(cols: list, n: int) -> int:
     return sum(c[0].element_size() * n + n for c in cols)
 
 
-def k1_case(n: int, kinds: List[str], seed: int, dev: torch.device
-            ) -> Dict[str, Any]:
+def k1_case(n: int, kinds: List[str], seed: int, dev: torch.device,
+            offset: Tuple[int, int] = (0, 0)) -> Dict[str, Any]:
+    """K1 over ``kinds`` columns (``_columns``); ``offset``: views that
+    start (data elements, validity bytes) into their storage."""
     rng = np.random.default_rng(seed)
-    cols = _columns(rng, n, kinds, True, dev)
-    return {"kernel": "range_mask", "label": f"n={n} K={len(cols)}",
+    cols = _columns(rng, n, kinds, True, dev, offset)
+    label = f"n={n} K={len(cols)} {','.join(kinds)}" \
+        + (f" views offset {offset}" if any(offset) else "")
+    return {"kernel": "range_mask", "label": label,
             "run": lambda: CO.range_mask_cuda(cols, n),
             "plain": lambda: CO.range_mask_plain(cols, n),
             "library": None,
@@ -528,26 +549,84 @@ def k6_case(P: int, s1: int, s2: int, vocab: int, seed: int,
             "ops": live * max(1, math.ceil(math.log2(max(s2, 2))))}
 
 
+def _a7(words: np.ndarray, ai: np.ndarray, bi: np.ndarray, label: str,
+        dev: torch.device) -> Dict[str, Any]:
+    """A7 over an [R, W] uint32 matrix (carried as int32) and pair rows.
+    The bound reads each row that a pair names once (not the matrix's
+    padding rows), the indices and the counts."""
+    R, W = words.shape
+    P = int(ai.shape[0])
+    bits = torch.from_numpy(words.view(np.int32)).to(dev)
+    at, bt = torch.from_numpy(ai).to(dev), torch.from_numpy(bi).to(dev)
+    return {"kernel": "bitset_intersect_counts",
+            "label": f"R={R} W={W} P={P}{label}",
+            "run": lambda: FO.popcount_cuda(bits, at, bt),
+            "plain": lambda: FO.popcount_plain(bits, at, bt),
+            "library": None,
+            "compare": _mask_compare,
+            "bytes": 4 * W * rows_touched(ai, bi) + 16 * P + 8 * P,
+            "ops": 3 * W * P}
+
+
+def rows_touched(ai: np.ndarray, bi: np.ndarray) -> int:
+    """Distinct record rows that the pairs (ai, bi) name."""
+    return int(np.unique(np.concatenate([ai, bi])).shape[0])
+
+
 def a7_case(R: int, W: int, P: int, density: float, seed: int,
-            dev: torch.device) -> Dict[str, Any]:
-    """``P`` pairs over an [R, W] bitset matrix with ``density`` of its
-    bits set (uint32 words carried as int32)."""
+            dev: torch.device, one_row: bool = False) -> Dict[str, Any]:
+    """``P`` pairs drawn uniformly over an [R, W] bitset matrix with
+    ``density`` of its bits set; ``one_row``: every pair is (R // 2,
+    R // 2)."""
     rng = np.random.default_rng(seed)
     words = np.zeros((R, W), dtype=np.uint32)
     for bit in range(32):
         on = rng.random((R, W)) < density
         words |= on.astype(np.uint32) << np.uint32(bit)
-    bits = torch.from_numpy(words.view(np.int32)).to(dev)
-    ai = torch.from_numpy(rng.integers(0, R, P)).to(dev)
-    bi = torch.from_numpy(rng.integers(0, R, P)).to(dev)
-    return {"kernel": "bitset_intersect_counts",
-            "label": f"R={R} W={W} P={P}",
-            "run": lambda: FO.popcount_cuda(bits, ai, bi),
-            "plain": lambda: FO.popcount_plain(bits, ai, bi),
-            "library": None,
-            "compare": _mask_compare,
-            "bytes": 4 * R * W + 16 * P + 8 * P,
-            "ops": 3 * W * P}
+    if one_row:
+        ai = bi = np.full(P, R // 2, dtype=np.int64)
+    else:
+        ai, bi = rng.integers(0, R, P), rng.integers(0, R, P)
+    return _a7(words, ai, bi, " one row" if one_row else "", dev)
+
+
+@functools.lru_cache(maxsize=4)
+def a7_clustered_arrays(records: int, seed: int
+                        ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The clustered FuzzyJoin's operands as its candidate order gives
+    them, without the LSH: clusters of 100 records over an 800-token
+    vocabulary, each record its cluster's 60 base tokens less 5 plus 3
+    random ones (``chip_smoke.clustered_records``); every pair of a
+    cluster (a < b) is a candidate, sorted by ``str`` as ``FuzzyJoin.run``
+    sorts them, so a record's pairs come in a run and its partners lie in
+    its cluster.  Rows pad to a power of two, as the pool pads them."""
+    rng = np.random.default_rng(seed)
+    vocab, seg, codes = 800, [], []
+    for c in range(records // 100):
+        base = rng.choice(vocab, 60, replace=False)
+        for r in range(100):
+            keep = rng.choice(base, 55, replace=False)
+            toks = np.union1d(keep, rng.choice(vocab, 3, replace=False))
+            codes.append(toks)
+            seg.append(np.full(toks.shape[0], c * 100 + r))
+    R = records // 100 * 100
+    words = FO.encode_bitsets(np.concatenate(codes).astype(np.int64),
+                              np.concatenate(seg), R, vocab)
+    rp = 1 << (R - 1).bit_length()
+    words = np.concatenate(
+        [words, np.zeros((rp - R, words.shape[1]), np.uint32)])
+    pairs = sorted(((a, b) for c in range(0, R, 100)
+                    for a in range(c, c + 100) for b in range(a + 1, c + 100)),
+                   key=str)
+    ab = np.array(pairs, dtype=np.int64)
+    return (words, np.ascontiguousarray(ab[:, 0]),
+            np.ascontiguousarray(ab[:, 1]))
+
+
+def a7_clustered_case(records: int, seed: int, dev: torch.device
+                      ) -> Dict[str, Any]:
+    words, ai, bi = a7_clustered_arrays(records, seed)
+    return _a7(words, ai, bi, f" clustered ({records} records)", dev)
 
 
 def main_path_cases(dev: torch.device, seed: int = 0) -> List[Dict]:
@@ -565,10 +644,15 @@ def main_path_cases(dev: torch.device, seed: int = 0) -> List[Dict]:
     15-character table-3 query at d = 3; K6 scoring 2**7 candidate names' gram sets (S1 = 32)
     against a query's (S2 = 32), and a wide-vocabulary
     FuzzyJoin's 2**17 record pairs of width 67; A7 the clustered
-    FuzzyJoin's 2**18 pairs over 4,096 records of W = 32 words."""
+    FuzzyJoin's live pairs in its candidate order (``a7_clustered_case``:
+    173,250 pairs over 4,096 records of W = 32 words), and 2**18 pairs
+    drawn uniformly over the same matrix shape (kept for comparison with
+    earlier runs).  K1 runs first at the columnar path's own shape (the
+    skip-index select's one int64 timestamp range), then at K = 2."""
     n = 1 << 19
     names = list(path_user_names(seed + 5))
-    return [k1_case(n, ["ts", "id"], seed, dev),
+    return [k1_case(n, ["ts"], seed, dev),
+            k1_case(n, ["ts", "id"], seed, dev),
             k2_case(n, ["ts", "id"], ["id", "f64"], seed + 1, dev),
             k3_case(1 << 18, 1 << 16, seed + 2, dev),
             k4_case(n, 1 << 17, 1, seed + 3, dev),
@@ -580,6 +664,7 @@ def main_path_cases(dev: torch.device, seed: int = 0) -> List[Dict]:
             k4_path_case(3, seed + 5, dev),
             k6_case(1 << 7, 32, 32, 1 << 20, seed + 6, dev),
             k6_case(1 << 17, 67, 67, 1 << 16, seed + 7, dev),
+            a7_clustered_case(3500, seed + 8, dev),
             a7_case(1 << 12, 32, 1 << 18, 60 / 800, seed + 8, dev)]
 
 

@@ -21,6 +21,7 @@ import pytest
 jax = pytest.importorskip("jax")
 
 import repro_torch  # noqa: E402
+import torch  # noqa: E402
 from repro_torch.kernels import columnar_ops as PK  # noqa: E402
 
 
@@ -173,6 +174,90 @@ def test_range_mask_edges(RK):
     assert PK.range_mask([(x, v, 1, 2)], 0).shape == (0,)
     np.testing.assert_array_equal(PK.range_mask([], 7),
                                   RK.range_mask([], 7, force_pallas=False))
+
+
+def _nib(w):
+    """csrc/common.cuh's nib: 4 bytes of a uint32 -> 4 bits (byte i
+    nonzero -> bit i)."""
+    return sum(((w >> np.uint32(8 * i)) & np.uint32(0xFF) != 0)
+               .astype(np.uint32) << np.uint32(i) for i in range(4))
+
+
+def _k1_runs(cols, n, run=8, threads=256):
+    """A transcription of csrc/range_mask.cu: passes of up to 8 columns;
+    about one wave of warps, grid-stride over runs of 32 x ``run`` rows,
+    lane i of a run rows 64 k + 2 i + e as mask bit 2 k + e; a full run
+    stores its bits as 2-byte pairs o[32 q] from the lane's first row (a
+    later pass first ANDs in the old bits, read as nib(o[64 q] |
+    o[64 q + 32] << 16)), a partial run its rows below n one by one."""
+    out = np.zeros(n + (n & 1), dtype=np.uint8)     # even: 2-byte view
+    o16 = out.view(np.uint16)
+    wrun = 32 * run
+    wruns = -(-n // wrun)
+    nwarps = max(1, min(-(-wruns // (threads // 32)), 132 * 8)) \
+        * (threads // 32)
+    b = np.arange(run)
+    for g in range(0, len(cols), 8):
+        for w in range(nwarps):
+            for wr in range(w, wruns, nwarps):
+                base = wr * wrun + 2 * np.arange(32)
+                rows = base[:, None] + 64 * (b >> 1) + (b & 1)    # [32, run]
+                r = np.minimum(rows, n - 1)
+                ok = rows < n
+                for x, v, lo, hi in cols[g:g + 8]:
+                    ok &= (v[r] != 0) & (x[r] >= lo) & (x[r] <= hi)
+                mask = (ok.astype(np.uint32) << b.astype(np.uint32)).sum(1)
+                if wr * wrun + wrun <= n:
+                    if g:
+                        old = np.zeros(32, np.uint32)
+                        for q in range(run // 4):
+                            lo16 = o16[(base + 128 * q) // 2].astype(np.uint32)
+                            hi16 = o16[(base + 128 * q + 64) // 2].astype(
+                                np.uint32)
+                            old |= _nib(lo16 | (hi16 << np.uint32(16))) \
+                                << np.uint32(4 * q)
+                        mask &= old
+                    for q in range(run // 2):
+                        o16[(base + 64 * q) // 2] = \
+                            ((mask >> np.uint32(2 * q)) & 1) \
+                            | (((mask >> np.uint32(2 * q + 1)) & 1) << 8)
+                else:
+                    for i in range(32):
+                        for bit in range(run):
+                            row = rows[i, bit]
+                            if row < n:
+                                m = bool((mask[i] >> bit) & 1)
+                                out[row] = (out[row] != 0 and m) if g else m
+    return out[:n].astype(bool)
+
+
+@pytest.mark.parametrize("kind", KINDS + ["nine_columns"])
+@pytest.mark.parametrize("n", [1, 37, 1000, 4099, 8193])
+def test_range_mask_runs_transcription(RK, kind, n):
+    """K1's runs and passes, transcribed, against the plain version and
+    the reference's x64 path: partial runs, 2-byte pair stores, and nine
+    predicates as a pass of eight then one ANDed in."""
+    if kind == "nine_columns":
+        cases = [_case(k, n, seed=n + i)[0]
+                 for i, k in enumerate(KINDS + ["int64_big"])]
+        preds = [p for ps in cases for p in ps][:9]
+        assert len(preds) == 9
+    else:
+        preds, _, n = _case(kind, n, seed=n * 7 + len(kind))
+    np2 = max(PK._pow2_len(n), max(int(p[0].shape[0]) for p in preds))
+    cols = []
+    for p in preds:
+        x, v, lo, hi = PK._pad_pred(p, np2)
+        blo, bhi = PK._prep_bounds(x, lo, hi)
+        x = PK._kernel_array(x)
+        cols.append((x, v, blo.astype(x.dtype), bhi.astype(x.dtype)))
+    got = _k1_runs(cols, np2)
+    plain = PK.range_mask_plain(
+        [(torch.from_numpy(x), torch.from_numpy(v), lo, hi)
+         for x, v, lo, hi in cols], np2).numpy()
+    np.testing.assert_array_equal(got, plain)
+    np.testing.assert_array_equal(
+        got[:n], RK.range_mask(preds, n, force_pallas=False))
 
 
 @pytest.mark.parametrize("kind", ["int64_big", "f64", "mixed", "subset"])

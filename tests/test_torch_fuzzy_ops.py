@@ -17,6 +17,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 jax = pytest.importorskip("jax")
 
@@ -534,6 +535,94 @@ def test_bitset_intersect_counts_match_reference(RF, R, W, P):
     assert got.dtype == np.int64 and got.shape == (P,)
     np.testing.assert_array_equal(
         got, RF.bitset_intersect_counts(bits, ai, bi))
+
+
+def _a7_groups(W, aligned=True):
+    """csrc/bitset_intersect.cu's dispatch: (G lanes a pair, words a
+    chunk)."""
+    if W % 4 == 0 and aligned:
+        return 8, 4
+    return (1 if W == 1 else 8), 1
+
+
+def _a7_warps(words, ai, bi, G, cw, resident=3, threads=256):
+    """A transcription of ``bitset_intersect_kernel``: one wave of blocks,
+    each a contiguous range of whole 32-pair warp runs; a warp loads 32
+    index pairs, round q gives group g (lanes g G .. g G + G - 1) pair
+    q (32 / G) + g, lane j of the group counts chunks j, j + G, ... of
+    ``cw`` words; a reduce-scatter over the group leaves lane j the count
+    of pair j (32 / G) + g."""
+    R, W = words.shape
+    P = ai.shape[0]
+    chunks = W // cw
+    per_word = words.reshape(R, chunks, cw)
+    out = np.full(P, -1, dtype=np.int64)
+    runs = -(-P // 32)
+    blocks = 132 * resident
+    if blocks * (threads // 32) > runs:
+        blocks = -(-runs // (threads // 32))
+    per_block = -(-runs // max(blocks, 1)) * 32
+    PR, lane = 32 // G, np.arange(32)
+    g, j = lane // G, lane % G
+    for blk in range(max(blocks, 1)):
+        begin = blk * per_block
+        end = min(P, begin + per_block)
+        for w in range(threads // 32):
+            for p0 in range(begin + 32 * w, end, threads):
+                p = p0 + lane
+                ra = np.where(p < end, ai[np.minimum(p, P - 1)], 0)
+                rb = np.where(p < end, bi[np.minimum(p, P - 1)], 0)
+                c = np.zeros((32, G), dtype=np.int64)
+                for q in range(G):
+                    x, y = ra[q * PR + g], rb[q * PR + g]      # shuffles
+                    for ln in range(32):
+                        both = per_word[x[ln], j[ln]::G] & \
+                            per_word[y[ln], j[ln]::G]
+                        c[ln, q] = int(np.unpackbits(
+                            np.ascontiguousarray(both).view(np.uint8)).sum())
+                h = G // 2
+                while h:
+                    up = (j & h) != 0
+                    for t in range(h):
+                        send = np.where(up, c[:, t], c[:, t + h])
+                        keep = np.where(up, c[:, t + h], c[:, t])
+                        c[:, t] = keep + send[lane ^ h]
+                    h //= 2
+                dst = p0 + j * PR + g
+                ok = dst < end
+                out[dst[ok]] = c[ok, 0]
+    return out
+
+
+@pytest.mark.parametrize("W,aligned", [(1, True), (2, True), (3, True),
+                                       (4, True), (8, True), (16, True),
+                                       (32, True), (64, True), (100, True),
+                                       (32, False)])
+def test_bitset_intersect_groups_transcription(RF, W, aligned):
+    """A7's lane groups, transcribed, against the plain version and the
+    reference on pairs of a run of one record and uniform pairs: every
+    group size and chunk, a warp run cut by the block's range and P."""
+    rng = np.random.default_rng(W)
+    R, P = 40, 300
+    bits = rng.integers(0, 2 ** 32, (R, W), dtype=np.uint64).astype(
+        np.uint32)
+    ai = np.concatenate([np.full(50, 7), rng.integers(0, R, P - 50)])
+    bi = rng.integers(0, R, P)
+    G, cw = _a7_groups(W, aligned)
+    got = _a7_warps(bits, ai, bi, G, cw, resident=1, threads=64)
+    want = PF.bitset_intersect_counts(bits, ai, bi)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        got, RF.bitset_intersect_counts(bits, ai, bi))
+
+
+def test_popcount_cuda_refuses_2_31_rows():
+    """The kernel shuffles row indices as 32-bit: a matrix of 2**31 rows
+    or more is refused before anything reaches a device."""
+    bits = torch.zeros(1, 1, dtype=torch.int32).expand(2 ** 31, 1)
+    idx = torch.zeros(4, dtype=torch.int64)
+    with pytest.raises(ValueError, match="2\\*\\*31"):
+        PF.popcount_cuda(bits, idx, idx)
 
 
 def test_bitset_intersect_counts_refuse_out_of_range_rows():

@@ -40,6 +40,37 @@ def test_range_mask_kernel(dev, n, kinds):
     assert r["ok"], r
 
 
+# K = 1, 2 (every column's loads in flight) and 9 (a pass of 8 columns,
+# two in flight, then one ANDed into the mask); "nan" rows are NaN every
+# third row, valid every other row
+K1_KINDS = [["ts"], ["nan", "code"],
+            ["id", "ts", "f64", "code", "nan", "id", "ts", "f64", "code"]]
+
+
+@pytest.mark.parametrize("n", [15, 16, 17, 255, 256, 257, 511, 512, 513,
+                               (1 << 19) + 3])
+@pytest.mark.parametrize("kinds", K1_KINDS)
+def test_range_mask_run_edges(dev, n, kinds):
+    """Runs of 32 x 8 rows a warp: a partial run's rows load and store
+    one by one, whole runs as vectors."""
+    r = SC.run_case(SC.k1_case(n, kinds, seed=n + len(kinds), dev=dev),
+                    timed=False)
+    assert r["ok"], r
+
+
+@pytest.mark.parametrize("offset", [(1, 1), (1, 0), (0, 1), (0, 8), (2, 8)])
+@pytest.mark.parametrize("n", [17, 70_001])
+@pytest.mark.parametrize("kinds", K1_KINDS)
+def test_range_mask_offset_views(dev, offset, n, kinds):
+    """Columns whose data (in elements) and validity (in bytes) start off
+    their storage, as contiguous views do: int64 data 8 bytes and validity
+    1 byte off a 16-byte boundary load their rows one by one; 16-byte
+    aligned data and 2-byte aligned validity still load as vectors."""
+    r = SC.run_case(SC.k1_case(n, kinds, seed=n, dev=dev, offset=offset),
+                    timed=False)
+    assert r["ok"], r
+
+
 @pytest.mark.parametrize("n", SMALL_N)
 @pytest.mark.parametrize("preds,aggs", [
     (["ts", "id"], ["id", "f64"]), ([], ["f64", "code"]), (["code"], []),
@@ -253,7 +284,56 @@ def test_bitset_intersect_kernel(dev, R, W, P):
     assert r["ok"], r
 
 
-@pytest.mark.parametrize("i", range(12))
+@pytest.mark.parametrize("W", [1, 3, 32, 100])
+@pytest.mark.parametrize("one_row", [False, True])
+def test_bitset_intersect_widths(dev, W, one_row):
+    """Groups of 1 to 8 lanes a pair over 16-byte chunks (W = 32, and 100
+    with its 25 chunks in a loop) or words (W = 1, 3); every pair on one
+    row as well as uniform pairs."""
+    r = SC.run_case(SC.a7_case(777, W, 4099, 0.4, seed=W, dev=dev,
+                               one_row=one_row), timed=False)
+    assert r["ok"], r
+
+
+@pytest.mark.parametrize("records", [300, 3500])
+def test_bitset_intersect_clustered_order(dev, records):
+    """The clustered FuzzyJoin's candidate order: a record's pairs in a
+    run, its partners inside its cluster of 100."""
+    r = SC.run_case(SC.a7_clustered_case(records, seed=records, dev=dev),
+                    timed=False)
+    assert r["ok"], r
+
+
+def test_bitset_intersect_large_matrix(dev):
+    """A record matrix of 8 MB (2**16 rows of W = 32), past any on-chip
+    memory, with pairs drawn over all of it."""
+    r = SC.run_case(SC.a7_case(1 << 16, 32, 100_003, 0.2, seed=3, dev=dev),
+                    timed=False)
+    assert r["ok"], r
+
+
+@pytest.mark.parametrize("P", [1, 33, 1001, 38_512])
+def test_bitset_intersect_counts_live_pairs(dev, P):
+    """Through the wrapper: P live pairs (not a power of two) over pooled
+    index buffers padded to 2**k, counted on the card, equal numpy's
+    popcount of the ANDed rows."""
+    import numpy as np
+    from repro_torch.kernels import fuzzy_ops as FO
+    rng = np.random.default_rng(P)
+    R = 1500
+    bits = rng.integers(0, 2 ** 32, (R, 4), dtype=np.uint64).astype(
+        np.uint32)
+    ai, bi = rng.integers(0, R, P), rng.integers(0, R, P)
+    before = SC.launch_counts()["bitset_intersect_counts"]
+    got = FO.bitset_intersect_counts(bits, ai, bi)
+    want = np.unpackbits((bits[ai] & bits[bi]).view(np.uint8),
+                         axis=1).sum(1)
+    assert got.shape == (P,)
+    np.testing.assert_array_equal(got, want)
+    assert SC.launch_counts()["bitset_intersect_counts"] == before + 1
+
+
+@pytest.mark.parametrize("i", range(14))
 def test_main_path_shapes(dev, i):
     r = SC.run_case(SC.main_path_cases(dev)[i], timed=False)
     assert r["ok"], r
