@@ -5,23 +5,36 @@ Drives the port's columnar and fuzzy query paths and its model serving
 path on one CUDA device and checks them:
 
   1. device   the card's name and power limit (nvidia-smi)
-  2. build    the ten CUDA kernels from src/repro_torch/kernels/csrc
-  3. kernels  K1-K9 and A7 against their plain PyTorch versions at
-              main-path shapes (the serve phase's too), timed beside
-              their bound and, where one PyTorch call computes the same
-              function, that call
+  2. build    the CUDA kernels from src/repro_torch/kernels/csrc
+  3. kernels  K1-K9, A7 and rungs 3 and 4's kernels (A6, stacked K1 and
+              K2, the exchange, a merge) against their plain PyTorch
+              versions at main-path shapes (the serve phase's too), timed
+              beside their bound and, where one PyTorch call computes the
+              same function, that call
   4. main     TinySocial ingested through ``insert_batch`` (tiered merges
               run K3), then the table-3 query classes through
-              ``run_query(..., vectorize=True)``, cold and warm, checked
-              against the row engine and numpy over the generated records
-  4b. fuzzy   on the same users: an ngram(3) index on ``name`` and a
+              ``run_query(..., vectorize=True)`` on the per-operator path
+              (plan cache off: the index probes launch K4), cold and warm,
+              checked against the row engine and numpy over the generated
+              records
+  4a. rung 3  the plan cache on: the index range scan (A6 in mask mode)
+              and ``index_chain_aggregate_exact`` (A6 in aggregate mode),
+              checked against the per-operator rows and numpy; warm runs
+              ship nothing, retrace nothing and hit the plan cache
+  4b. rung 4  ``mesh=4`` (lanes == partitions): the two chains (stacked
+              A6), the skip-index select (stacked K1), the exact-range
+              aggregate (stacked K2) and grouped_topk (the exchange), one
+              stacked dispatch each, checked against the loop's rows; the
+              partitions' partial aggregates merged (the merges) and
+              checked against numpy
+  4c. fuzzy   on the same users: an ngram(3) index on ``name`` and a
               keyword index on ``alias`` built by backfill, three fuzzy
               selects (K4 at T > 1, K5, K6) and a fuzzy keyword probe
               (K5, K4) cold and warm, checked against the row engine's
               full scan; ``FuzzyJoin.run`` on table 3's message tags and
               on clustered records (A7, and K6 past a 2**15 vocabulary),
               checked against the per-pair verify loop
-  4c. serve   deepseek-67b at its published widths, depth cut to 8 layers,
+  4d. serve   deepseek-67b at its published widths, depth cut to 8 layers,
               float32 weights from a seeded generator: 8 requests of 512
               prompt tokens through one prefill (K7, K8), then 319 greedy
               decode steps on the flat cache and, fed the same tokens, on
@@ -111,6 +124,40 @@ def plans(A):
     }
 
 
+def rung_plans(A):
+    """The rung-3 and rung-4 queries: the index range scan, and
+    index_chain_aggregate with an exact range and no skip-index hint (the
+    aggregate the fused chain reduces on the card), then, for the mesh,
+    the skip-index select, the exact-range aggregate and grouped_topk."""
+    base = plans(A)
+    chain_agg = A.aggregate(
+        A.select(A.scan("MugshotMessages"),
+                 pred=lambda r: MLO <= r["timestamp"] <= MHI,
+                 fields=["timestamp"], ranges={"timestamp": (MLO, MHI)},
+                 ranges_exact=True),
+        {"cnt": ("count", "*"), "avg_author": ("avg", "author-id")})
+    rung3 = {"index_range_scan": base["index_range_scan"],
+             "index_chain_aggregate_exact": chain_agg}
+    rung4 = dict(rung3)
+    for name in ("skip_index_select", "exact_range_aggregate",
+                 "grouped_topk"):
+        rung4[name] = base[name]
+    return rung3, rung4
+
+
+# the kernel each rung-4 query's one stacked dispatch launches
+RUNG4_KERNEL = {"index_range_scan": "fused_index_chain",
+                "index_chain_aggregate_exact": "fused_index_chain",
+                "skip_index_select": "range_mask_stacked",
+                "exact_range_aggregate": "filter_aggregate_stacked",
+                "grouped_topk": "spmd_exchange"}
+RUNG3_PATH = ("fused_index_chain",)
+RUNG4_PATH = ("fused_index_chain", "range_mask_stacked",
+              "filter_aggregate_stacked", "spmd_exchange", "spmd_merge")
+EXCHANGE_H2D = "kernel.spmd_exchange.h2d_bytes"
+MESH_LANES = 4
+
+
 # a plan whose select is not ranges_exact re-checks its index survivors
 # row by row and aggregates the gathered batch: those columns are new
 # per query and ship (as in the reference, whose fused chain declines it)
@@ -137,7 +184,8 @@ def numpy_oracle(name, rows, rec):
         want = rec["uid"][(rec["since"] >= np.datetime64(LO))
                           & (rec["since"] <= np.datetime64(HI))]
         check(sorted(r["id"] for r in rows) == sorted(want.tolist()), name)
-    elif name in ("exact_range_aggregate", "index_chain_aggregate"):
+    elif name in ("exact_range_aggregate", "index_chain_aggregate",
+                  "index_chain_aggregate_exact"):
         sel = (ts >= np.datetime64(MLO)) & (ts <= np.datetime64(MHI))
         check(len(rows) == 1 and rows[0]["cnt"] == int(sel.sum()), name)
         want = float(author[sel].sum()) / int(sel.sum())
@@ -201,6 +249,130 @@ def build_tinysocial(args, port):
           f"{t_gen:.3f} s; ingested in {t_ingest:.3f} s "
           f"({n_rec / t_ingest:.0f} records/s, host clock)")
     return ds, rec
+
+
+# ---------------------------------------------------------------------------
+# rungs 3 and 4 of the query path: the fused chain and the partition mesh
+# ---------------------------------------------------------------------------
+
+def _timed_runs(query, plan, ds, reps, **kw):
+    """``reps`` runs of one query: [(host s to synchronize, rows, stats,
+    obs snapshot before, obs snapshot after)]."""
+    import torch
+    from repro_torch import obs
+    out = []
+    for _ in range(reps):
+        snap0 = obs.snapshot()
+        t = time.perf_counter()
+        rows, ex = query.run_query(plan, ds, vectorize=True, **kw)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t, rows, ex.stats, snap0,
+                    obs.snapshot()))
+    return out
+
+
+def rung3_phase(ds, rec, loop_rows):
+    """Phase 4a: the plan cache on, each chain through A6, checked against
+    its per-operator rows ``loop_rows``."""
+    from repro_torch.columnar import plancache
+    from repro_torch.core import algebra
+    from repro_torch.storage import query
+    rung3, _ = rung_plans(algebra)
+    plancache.set_enabled(True)
+    for name, plan in rung3.items():
+        runs = _timed_runs(query, plan, ds, 1 + WARM_REPEATS)
+        cold = runs[0][2]
+        for _t, rows, st, _s0, _s1 in runs[1:]:
+            check(st.h2d_bytes == 0, f"rung 3 {name}: warm h2d "
+                                     f"{st.h2d_bytes}")
+            check(st.kernel_retraces == 0, f"rung 3 {name}: warm retraces")
+            check(st.plan_cache_hits > 0 and st.plan_cache_misses == 0,
+                  f"rung 3 {name}: warm plan cache hits "
+                  f"{st.plan_cache_hits} misses {st.plan_cache_misses}")
+            check(st.rows_fallback == 0, f"rung 3 {name}: row fallback")
+        rows = runs[-1][1]
+        check(canon(rows) == canon(loop_rows[name]),
+              f"rung 3 {name}: rows differ from the per-operator path's")
+        numpy_oracle(name, rows, rec)
+        warm = sorted(r[0] for r in runs[1:])
+        st = runs[-1][2]
+        print(f"rung3 {name}: rows {len(rows)} cold_s {runs[0][0]} "
+              f"warm_s_median {warm[len(warm) // 2]} (host clock to "
+              f"synchronize; {WARM_REPEATS} warm runs) cold_h2d "
+              f"{cold.h2d_bytes} warm_h2d {st.h2d_bytes} warm_d2h "
+              f"{st.d2h_bytes} warm_dispatches {st.kernel_dispatches} "
+              f"plan_cache hits {st.plan_cache_hits} misses "
+              f"{st.plan_cache_misses} (cold misses "
+              f"{cold.plan_cache_misses}); checked against the "
+              f"per-operator rows and numpy")
+
+
+def rung4_phase(ds, rec, loop_rows):
+    """Phase 4b: ``mesh=4`` lanes, one stacked dispatch a query, then the
+    partitions' partial aggregates merged."""
+    import numpy as np
+    from repro_torch.core import algebra
+    from repro_torch.runtime import spmd
+    from repro_torch.storage import query
+    _, rung4 = rung_plans(algebra)
+    for name, plan in rung4.items():
+        runs = _timed_runs(query, plan, ds, 1 + WARM_REPEATS,
+                           mesh=MESH_LANES)
+        cold = runs[0][2]
+        for _t, rows, st, s0, s1 in runs:
+            check(st.spmd_dispatches == 1 and st.spmd_partitions
+                  == MESH_LANES, f"rung 4 {name}: spmd dispatches "
+                                 f"{st.spmd_dispatches} partitions "
+                                 f"{st.spmd_partitions}")
+            check(st.rows_fallback == 0, f"rung 4 {name}: row fallback")
+        for _t, rows, st, s0, s1 in runs[1:]:
+            # the exchange's send planes are built per query (as in the
+            # reference); nothing else ships
+            exch = s1.get(EXCHANGE_H2D, 0) - s0.get(EXCHANGE_H2D, 0)
+            check(st.h2d_bytes == exch, f"rung 4 {name}: warm h2d "
+                                        f"{st.h2d_bytes} beyond the "
+                                        f"exchange's {exch}")
+            check(st.kernel_retraces == 0, f"rung 4 {name}: warm retraces")
+        rows = runs[-1][1]
+        check(canon(rows) == canon(loop_rows[name]),
+              f"rung 4 {name}: rows differ from the loop's")
+        numpy_oracle(name, rows, rec)
+        warm = sorted(r[0] for r in runs[1:])
+        st = runs[-1][2]
+        print(f"rung4 {name}: mesh {MESH_LANES} lanes, rows {len(rows)} "
+              f"cold_s {runs[0][0]} warm_s_median {warm[len(warm) // 2]} "
+              f"(host clock to synchronize; {WARM_REPEATS} warm runs) "
+              f"cold_h2d {cold.h2d_bytes} warm_h2d {st.h2d_bytes} "
+              f"warm_d2h {st.d2h_bytes} warm_dispatches "
+              f"{st.kernel_dispatches} spmd_dispatches "
+              f"{st.spmd_dispatches} spmd_partitions {st.spmd_partitions} "
+              f"({RUNG4_KERNEL[name]}); checked against the loop's rows "
+              f"and numpy")
+    # GLOBAL_AGG's merge of the partitions' partial aggregates
+    msgs = ds["MugshotMessages"]
+    parts_i, parts_m = [], []
+    for i in range(msgs.num_partitions):
+        b = msgs.scan_partition_batch(i, ["author-id"])
+        col = b.columns["author-id"]
+        x = col.data[:len(b)][col.valid[:len(b)]]
+        parts_i.append([x.shape[0], int(x.sum()), int(x.min()),
+                        int(x.max())])
+        parts_m.append([float(x.mean())])
+    parts_i = np.asarray(parts_i, np.int64)
+    with spmd.use_partition_mesh(MESH_LANES):
+        total = spmd.psum_merge(parts_i[:, :2])
+        lo = spmd.pmin_merge(parts_i[:, 2:3])
+        hi = spmd.pmax_merge(parts_i[:, 3:])
+        mean_hi = spmd.pmax_merge(np.asarray(parts_m))
+    a = rec["author"]
+    check(total.tolist() == [a.shape[0], int(a.sum())]
+          and lo.tolist() == [int(a.min())] and hi.tolist() == [int(a.max())]
+          and mean_hi[0] == max(m[0] for m in parts_m),
+          f"rung 4 merges: {total} {lo} {hi} {mean_hi}")
+    print(f"rung4 merges: psum of the {msgs.num_partitions} partitions' "
+          f"(count, sum) of author-id {total.tolist()}, pmin "
+          f"{lo.tolist()}, pmax {hi.tolist()}, pmax of the float64 means "
+          f"{mean_hi.tolist()}; checked against numpy")
 
 
 # ---------------------------------------------------------------------------
@@ -569,6 +741,7 @@ def main() -> int:
     from repro_torch.configs import tinysocial
     from repro_torch.core import adm, algebra
     from repro_torch.kernels import columnar_ops, device_pool, ops, selfcheck
+    from repro_torch.columnar import plancache
     from repro_torch.storage import dataset, query
     repro_torch.set_device("cuda")
     # float32 products in full float32 (the PyTorch defaults, stated)
@@ -604,6 +777,7 @@ def main() -> int:
     serve_shapes = {k: SERVE[k] for k in ("prompt", "gen", "tail_cap",
                                           "l1_comps")}
     for case in (selfcheck.main_path_cases(dev, seed=args.seed)
+                 + selfcheck.rung_cases(dev, seed=args.seed)
                  + selfcheck.serve_cases(dev, args.seed, SERVE["requests"],
                                          **serve_shapes)):
         r = selfcheck.run_case(case)
@@ -626,6 +800,10 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     ds, rec = build_tinysocial(args, port)
     qs = plans(algebra)
+    # the per-operator path (the plan cache off): the index probes launch
+    # K4, as before the fused chain was ported; phase 4a turns it on
+    plancache.set_enabled(False)
+    main_rows = {}
     for name, plan in qs.items():
         times = []
         for rep in range(1 + WARM_REPEATS):
@@ -648,6 +826,13 @@ def main() -> int:
             check(shipped == 0, f"{name}: warm h2d {st.h2d_bytes}")
         check(cold.rows_fallback == 0, f"{name}: cold row fallback")
         numpy_oracle(name, rows, rec)
+        main_rows[name] = rows
+        if name == "index_chain_aggregate":
+            # its exact-range twin, phases 4a and 4b's new query, on the
+            # per-operator path: the rows they are checked against
+            twin = rung_plans(algebra)[0]["index_chain_aggregate_exact"]
+            main_rows["index_chain_aggregate_exact"], _ = query.run_query(
+                twin, ds, vectorize=True)
         t = time.perf_counter()
         rrows, _ = query.run_query(plan, ds, vectorize=False)
         t_row = time.perf_counter() - t
@@ -674,8 +859,31 @@ def main() -> int:
     print(f"main: kernel shapes seen {seen}")
     for k in COLUMNAR_PATH:
         check(counts[k] > 0, f"kernel {k} never launched on the main path")
+    plancache.set_enabled(True)
 
-    # -- 4b. fuzzy path ----------------------------------------------------
+    # -- 4a. rung 3: the fused chain ---------------------------------------
+    selfcheck.reset_launch_counts()
+    t0 = time.perf_counter()
+    rung3_phase(ds, rec, main_rows)
+    rung3_counts = selfcheck.launch_counts()
+    print(f"rung3: launches {json.dumps(rung3_counts)}; phase took "
+          f"{time.perf_counter() - t0} s (host clock)")
+    for k in RUNG3_PATH:
+        check(rung3_counts[k] > 0, f"kernel {k} never launched on the "
+                                   f"rung-3 path")
+
+    # -- 4b. rung 4: the partition mesh ------------------------------------
+    selfcheck.reset_launch_counts()
+    t0 = time.perf_counter()
+    rung4_phase(ds, rec, main_rows)
+    rung4_counts = selfcheck.launch_counts()
+    print(f"rung4: launches {json.dumps(rung4_counts)}; phase took "
+          f"{time.perf_counter() - t0} s (host clock)")
+    for k in RUNG4_PATH:
+        check(rung4_counts[k] > 0, f"kernel {k} never launched on the "
+                                   f"rung-4 path")
+
+    # -- 4c. fuzzy path ----------------------------------------------------
     selfcheck.reset_launch_counts()
     t0 = time.perf_counter()
     k6_split = fuzzy_phase(ds, rec)
@@ -691,7 +899,7 @@ def main() -> int:
     print(f"fuzzy: K4 launches by threshold and route {json.dumps(k4)}")
     check(k4["T>1 sorted"] > 0 and k4["T>1 scatter"] == 0,
           f"fuzzy K4 launches at T > 1 not all by the sorted kernel: {k4}")
-    # -- 4c. serve path ----------------------------------------------------
+    # -- 4d. serve path ----------------------------------------------------
     t0 = time.perf_counter()
     serve_counts = serve_phase(args.seed)
     print(f"serve: phase took {time.perf_counter() - t0} s (host clock)")
@@ -710,9 +918,12 @@ def main() -> int:
         r = results[name][0]
         entry = {"name": name, "route": "cuda", "source": meta["source"],
                  "replaces": meta["replaces"],
-                 "launches": (counts[name] + fuzzy_counts[name]
+                 "launches": (counts[name] + rung3_counts[name]
+                              + rung4_counts[name] + fuzzy_counts[name]
                               + serve_counts[name]),
                  "launches_columnar": counts[name],
+                 "launches_rung3": rung3_counts[name],
+                 "launches_rung4": rung4_counts[name],
                  "launches_fuzzy": fuzzy_counts[name],
                  "launches_serve": serve_counts[name],
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],

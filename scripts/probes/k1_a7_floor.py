@@ -53,8 +53,8 @@ LIBS = [("k1", "range_mask.cu", [], []),
         ("k1_t128", "range_mask.cu", [],
          [("#define K1_THREADS 256", "#define K1_THREADS 128")]),
         ("k1_generic", "range_mask.cu", [],
-         [("range_mask_kernel<1><<<", "range_mask_kernel<0><<<"),
-          ("range_mask_kernel<2><<<", "range_mask_kernel<0><<<")]),
+         [("range_mask_kernel<1, ROWS><<<", "range_mask_kernel<0, ROWS><<<"),
+          ("range_mask_kernel<2, ROWS><<<", "range_mask_kernel<0, ROWS><<<")]),
         ("k1_no_loads", "range_mask.cu", ["-DK1_PROBE_NO_LOADS"], []),
         ("a7", "bitset_intersect.cu", [], []),
         ("a7_index_only", "bitset_intersect.cu", ["-DA7_PROBE_INDEX_ONLY"],

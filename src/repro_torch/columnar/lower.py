@@ -231,7 +231,7 @@ def _compile(op: PhysicalOp, ex: Any, needed: Optional[Set[str]]) -> Node:
         def run_select():
             cparts = child()
             cparts = _apply_conn(conn, cparts, ex, p)
-            # SPMD: every partition's range mask in one shard_map
+            # SPMD: every partition's range mask in one stacked
             # dispatch; None entries (empty batch / absent column) and a
             # None return (no mesh, operand drift) keep the loop path
             masks = SP.batched_range_masks(cparts, ranges)
@@ -278,7 +278,7 @@ def _compile(op: PhysicalOp, ex: Any, needed: Optional[Set[str]]) -> Node:
             def run_fused_agg():
                 cparts = inner()
                 cparts = _apply_conn(sel_conn, cparts, ex, p)
-                # SPMD: all partitions' filter+reduce as one shard_map
+                # SPMD: all partitions' filter+reduce as one stacked
                 # dispatch; per-partition None entries (and a None
                 # return) keep the per-partition kernel path
                 batched = SP.batched_select_aggregate(cparts, ranges, aggs)
@@ -626,7 +626,7 @@ def _compile_index_path(op: PhysicalOp, ex: Any,
             out.append(ColumnBatch.from_rows([dict(empty_row)])
                        if aggs is not None else ColumnBatch({}, 0))
 
-        # SPMD: all partitions' fused chains as one stacked shard_map
+        # SPMD: all partitions' fused chains as one stacked
         # dispatch over the active mesh (plancache.run_all); a None
         # return or per-partition None entries keep the loop below
         spmd_res = fused.run_all(cols) if fused is not None else None

@@ -242,9 +242,11 @@ class ColDesc(ctypes.Structure):
 
 _DT_TAG = {torch.int64: 0, torch.float64: 1, torch.int32: 2}
 _MAX_COLS = 8                       # csrc/common.cuh MAX_COLS
-# csrc/filter_aggregate.cu THREADS, RUN (rows a thread takes at a time)
-# and MAX_BLOCKS (the scratch's columns)
+# csrc/agg_kernel.cuh THREADS, RUN (rows a thread takes at a time),
+# MAX_BLOCKS (the scratch's columns) and PART_SLOTS (its rows a stacked
+# row: A6's 3 counts and 4 slots a column)
 _AGG_THREADS, _AGG_RUN, _AGG_MAX_BLOCKS = 256, 8, 264
+_PART_SLOTS = 3 + 4 * _MAX_COLS
 
 
 def _descs(cols: Sequence[Col]) -> ctypes.Array:
@@ -310,27 +312,31 @@ def tree_node_stride(n: int) -> int:
     return total
 
 
-# per (device, stream): K2's partials [1 + 4 MAX_COLS, MAX_BLOCKS], its
-# ticket, which the kernel leaves at 0, and its float64 node arrays
-# [MAX_COLS, node stride] (grown to the largest n seen); launches on one
-# stream run in order, so they share them
+# per (device, stream): the partials [rows, PART_SLOTS, MAX_BLOCKS] of K2
+# (and of its stacked form and A6's second pass, which run the same kernel
+# with a row axis), a ticket a row, which the kernel leaves at 0, and the
+# float64 node arrays [rows, MAX_COLS, node stride] (grown to the most
+# rows and the largest n seen); launches on one stream run in order, so
+# they share them
 _AGG_SCRATCH: Dict[Tuple[int, int], List[torch.Tensor]] = {}
 
 
-def _agg_scratch(dev: torch.device, stride: int) -> List[torch.Tensor]:
+def _agg_scratch(dev: torch.device, stride: int, rows: int = 1
+                 ) -> List[torch.Tensor]:
     key = (dev.index if dev.index is not None else
            torch.cuda.current_device(),
            torch.cuda.current_stream(dev).cuda_stream)
-    if key not in _AGG_SCRATCH:
-        _AGG_SCRATCH[key] = [
-            torch.empty((1 + 4 * _MAX_COLS, _AGG_MAX_BLOCKS),
+    got = _AGG_SCRATCH.get(key)
+    if got is None or got[1].numel() < rows:
+        got = _AGG_SCRATCH[key] = [
+            torch.empty((rows, _PART_SLOTS, _AGG_MAX_BLOCKS),
                         dtype=torch.int64, device=dev),
-            torch.zeros(1, dtype=torch.int32, device=dev),
-            torch.empty(0, dtype=torch.float64, device=dev)]
-    got = _AGG_SCRATCH[key]
-    if got[2].numel() < _MAX_COLS * stride:
-        got[2] = torch.empty(_MAX_COLS * stride, dtype=torch.float64,
-                             device=dev)
+            torch.zeros(rows, dtype=torch.int32, device=dev),
+            torch.empty(0 if got is None else got[2].numel(),
+                        dtype=torch.float64, device=dev)]
+    if got[2].numel() < rows * _MAX_COLS * stride:
+        got[2] = torch.empty(rows * _MAX_COLS * stride,
+                             dtype=torch.float64, device=dev)
     return got
 
 

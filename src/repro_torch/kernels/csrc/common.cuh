@@ -1,4 +1,5 @@
-// Shared descriptors and row-run loads for the columnar kernels (K1, K2).
+// Shared descriptors and row-run loads for the columnar kernels (K1, K2
+// and A6's second pass).
 // The descriptor layouts are mirrored by ctypes structures in
 // kernels/columnar_ops.py: change both.
 #pragma once
@@ -126,21 +127,56 @@ __device__ __forceinline__ void load_run(const ColDesc& c, int64_t base,
 }
 
 // Rows of the run that are valid and inside [lo, hi] (NaN fails both
-// compares, as in x64 jnp); the column's dtype is resolved once a run
+// compares, as in x64 jnp); lo and hi are the bounds' bits (float64 bounds
+// as their raw bits), the column's dtype is resolved once a run
 template <int R>
 __device__ __forceinline__ uint32_t pred_bits(const ColDesc& c,
-                                              const RowRun<R>& r) {
+                                              const RowRun<R>& r,
+                                              int64_t lo, int64_t hi) {
   uint32_t in = 0;
   if (c.dtype == DT_F64) {
+    const double lf = __longlong_as_double(lo), hf = __longlong_as_double(hi);
 #pragma unroll
     for (int i = 0; i < R; ++i) {
       const double x = __longlong_as_double(r.x[i]);
-      in |= static_cast<uint32_t>(x >= c.lo_f && x <= c.hi_f) << i;
+      in |= static_cast<uint32_t>(x >= lf && x <= hf) << i;
     }
   } else {
 #pragma unroll
     for (int i = 0; i < R; ++i)
-      in |= static_cast<uint32_t>(r.x[i] >= c.lo_i && r.x[i] <= c.hi_i) << i;
+      in |= static_cast<uint32_t>(r.x[i] >= lo && r.x[i] <= hi) << i;
   }
   return in & valid_bits(r);
+}
+
+// The row axis of the columnar kernels (K1, K2 and A6's second pass): the
+// grid's y index is a row of a stacked [R, n] operand set, row r's
+// operands start r * n rows into every column, and its predicate bounds
+// are bounds[r * bstride + 2 j], [... + 1] (bits).  Threads below t.n
+// stage them in shared memory (the caller syncs).  The loop path's
+// one-row launches (ROWS false below) read the descriptors' own bounds.
+__device__ __forceinline__ void stage_bounds(const ColTable& t,
+                                             const int64_t* bounds,
+                                             int bstride, int64_t* s_lo,
+                                             int64_t* s_hi) {
+  const int j = threadIdx.x;
+  if (j < t.n) {
+    const int64_t* b = bounds + static_cast<int64_t>(blockIdx.y) * bstride;
+    s_lo[j] = b[2 * j];
+    s_hi[j] = b[2 * j + 1];
+  }
+}
+
+// Predicate j's bounds as bits: the row's staged ones, or the descriptor's
+template <bool ROWS>
+__device__ __forceinline__ int64_t bound_lo(const ColDesc& c,
+                                            const int64_t* s_lo, int j) {
+  if constexpr (ROWS) return s_lo[j];
+  else return c.dtype == DT_F64 ? __double_as_longlong(c.lo_f) : c.lo_i;
+}
+template <bool ROWS>
+__device__ __forceinline__ int64_t bound_hi(const ColDesc& c,
+                                            const int64_t* s_hi, int j) {
+  if constexpr (ROWS) return s_hi[j];
+  else return c.dtype == DT_F64 ? __double_as_longlong(c.hi_f) : c.hi_i;
 }

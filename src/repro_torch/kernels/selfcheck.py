@@ -5,8 +5,8 @@ versions, at the shapes the main path gives them.
 it needs a CUDA device.  Every case builds its inputs from a numpy seed on
 the card, runs the kernel and its plain PyTorch version on the same
 tensors, and compares them: masks, counts and distances exactly,
-float64 sums within ``SUM_RTOL`` relative (the kernel folds partial sums
-in a fixed tree order, the plain version in torch's order), and the model
+float64 sums within ``SUM_RTOL`` relative (K2; the cases of rungs 3 and
+4 compare theirs bit for bit, ``raw_compare``), and the model
 kernels' float32 results within ``MODEL_RTOL`` (bfloat16 outputs within
 ``BF16_RTOL``) of the largest reference magnitude.
 
@@ -35,11 +35,13 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from . import chain_ops as CH
 from . import columnar_ops as CO
 from . import flash_attention as FA
 from . import fuzzy_ops as FO
 from . import lsm_decode_attention as LD
 from . import rmsnorm as RN
+from . import spmd_ops as SO
 from .columnar_ops import _prep_bounds
 
 __all__ = ["KERNELS", "SUM_RTOL", "MODEL_RTOL", "BF16_RTOL",
@@ -51,6 +53,8 @@ __all__ = ["KERNELS", "SUM_RTOL", "MODEL_RTOL", "BF16_RTOL",
            "rows_touched",
            "k7_case",
            "k8_case", "k9_case", "main_path_cases", "serve_cases",
+           "a6_case", "k1_rows_case", "k2_rows_case", "exchange_case",
+           "merge_case", "rung_cases", "raw_compare",
            "run_case", "device_ms", "profiler_works"]
 
 # H100 SXM (NVIDIA data sheet): HBM3 bandwidth and the FP32 rate outside
@@ -112,6 +116,28 @@ KERNELS = {
         "source": "src/repro_torch/kernels/csrc/lsm_decode_attention.cu",
         "replaces": "src/repro/kernels/lsm_decode_attention.py:32",
         "wrapper": LD.decode_partial_cuda},
+    # the query path's rungs 3 and 4: jit cores of the reference, each one
+    # launch there (no pallas_call)
+    "fused_index_chain": {
+        "source": "src/repro_torch/kernels/csrc/fused_chain.cu",
+        "replaces": "src/repro/columnar/plancache.py:116",
+        "wrapper": CH.chain_cuda},
+    "range_mask_stacked": {
+        "source": "src/repro_torch/kernels/csrc/range_mask.cu",
+        "replaces": "src/repro/runtime/spmd.py:333",
+        "wrapper": SO.range_mask_rows_cuda},
+    "filter_aggregate_stacked": {
+        "source": "src/repro_torch/kernels/csrc/filter_aggregate.cu",
+        "replaces": "src/repro/runtime/spmd.py:357",
+        "wrapper": SO.filter_aggregate_rows_cuda},
+    "spmd_exchange": {
+        "source": "src/repro_torch/kernels/csrc/spmd_ops.cu",
+        "replaces": "src/repro/runtime/spmd.py:568",
+        "wrapper": SO.exchange_cuda},
+    "spmd_merge": {
+        "source": "src/repro_torch/kernels/csrc/spmd_ops.cu",
+        "replaces": "src/repro/runtime/spmd.py:678",
+        "wrapper": SO.merge_cuda},
 }
 
 
@@ -669,6 +695,263 @@ def main_path_cases(dev: torch.device, seed: int = 0) -> List[Dict]:
 
 
 # ---------------------------------------------------------------------------
+# rungs 3 and 4 of the query path: A6, stacked K1 / K2, exchange, merges
+# (raw int64 results: counts and int slots exact, float64 slots bit-equal
+# or both NaN)
+# ---------------------------------------------------------------------------
+
+def raw_compare(got: Tuple[np.ndarray, np.ndarray],
+                ref: Tuple[np.ndarray, np.ndarray],
+                floats: List[int]) -> float:
+    """0.0 when two (raw [R, W] int64, mask [R, n]) results agree: the
+    masks and every integer slot exactly, the float64 slots (columns
+    ``floats`` of raw) bit for bit or both NaN; inf otherwise."""
+    graw, gmask = got
+    rraw, rmask = ref
+    if graw.shape != rraw.shape or not np.array_equal(gmask, rmask):
+        return math.inf
+    ints = [c for c in range(graw.shape[1]) if c not in floats]
+    if not np.array_equal(graw[:, ints], rraw[:, ints]):
+        return math.inf
+    for c in floats:
+        g = graw[:, c].view(np.float64)
+        r = rraw[:, c].view(np.float64)
+        same = (graw[:, c] == rraw[:, c]) | (np.isnan(g) & np.isnan(r))
+        if not same.all():
+            return math.inf
+    return 0.0
+
+
+def _float_slots(n_counts: int, kinds: List[str]) -> List[int]:
+    return [n_counts + 4 * j + f for j, k in enumerate(kinds)
+            if k in ("f64", "f64n", "nan") for f in (1, 2, 3)]
+
+
+def _stacked_columns(rng: np.random.Generator, rows: int, n: int,
+                     kinds: List[str], bounds: bool, dev: torch.device
+                     ) -> list:
+    """``_columns`` stacked over ``rows`` rows ([R, n] tensors), each row
+    with its own bounds (lo / hi moved by the row index) as [R] arrays."""
+    cols = []
+    per = [_columns(rng, n, kinds, bounds, torch.device("cpu"))
+           for _ in range(rows)]
+    for j in range(len(kinds)):
+        x = torch.stack([per[r][j][0] for r in range(rows)]).to(dev)
+        v = torch.stack([per[r][j][1] for r in range(rows)]).to(dev)
+        if not bounds:
+            cols.append((x, v))
+            continue
+        lo = np.asarray([per[r][j][2] for r in range(rows)])
+        hi = np.asarray([per[r][j][3] for r in range(rows)])
+        if lo.dtype.kind == "f":
+            lo = lo + 50.0 * np.arange(rows)
+        elif hi[0] < np.iinfo(hi.dtype).max:
+            span = (hi[0] - lo[0]) // 8
+            lo = lo + span * np.arange(rows, dtype=lo.dtype)
+        cols.append((x, v, lo, hi))
+    return cols
+
+
+def _col_bytes_rows(cols: list, rows: int, n: int) -> int:
+    return sum((c[0].element_size() + 1) * rows * n for c in cols)
+
+
+def k1_rows_case(rows: int, n: int, kinds: List[str], seed: int,
+                 dev: torch.device) -> Dict[str, Any]:
+    """Stacked K1 over ``rows`` rows of ``n`` lanes, each row's bounds its
+    own."""
+    rng = np.random.default_rng(seed)
+    cols = _stacked_columns(rng, rows, n, kinds, True, dev)
+    return {"kernel": "range_mask_stacked",
+            "label": f"R={rows} n={n} K={len(cols)} {','.join(kinds)}",
+            "run": lambda: SO.range_mask_rows_cuda(cols, rows, n),
+            "plain": lambda: SO.range_mask_rows_plain(cols, rows, n),
+            "library": None, "compare": _mask_compare, "cols": cols,
+            "bytes": _col_bytes_rows(cols, rows, n) + rows * n,
+            "ops": 2 * len(cols) * rows * n}
+
+
+def k2_rows_case(rows: int, n: int, pred_kinds: List[str],
+                 agg_kinds: List[str], seed: int, dev: torch.device
+                 ) -> Dict[str, Any]:
+    """Stacked K2 over ``rows`` rows: each row's mask, count and column
+    scalars (float64 sums in tree_sum's order, compared bit for bit)."""
+    rng = np.random.default_rng(seed)
+    pcols = _stacked_columns(rng, rows, n, pred_kinds, True, dev)
+    acols = _stacked_columns(rng, rows, n, agg_kinds, False, dev)
+    floats = _float_slots(1, agg_kinds)
+    return {"kernel": "filter_aggregate_stacked",
+            "label": f"R={rows} n={n} K={len(pcols)} M={len(acols)}",
+            "run": lambda: SO.filter_aggregate_rows_cuda(pcols, acols, rows,
+                                                         n),
+            "plain": lambda: SO.filter_aggregate_rows_plain(pcols, acols,
+                                                            rows, n),
+            "library": None,
+            "compare": lambda got, ref: raw_compare(
+                CH.unpack(got.cpu().numpy(), rows, 1 + 4 * len(acols), n),
+                ref, floats),
+            "pcols": pcols, "acols": acols,
+            "bytes": _col_bytes_rows(pcols, rows, n)
+            + _col_bytes_rows(acols, rows, n) + rows * n
+            + 8 * rows * (1 + 4 * len(acols)),
+            "ops": (2 * len(pcols) + 4 * len(acols)) * rows * n}
+
+
+def a6_arrays(rows: int, n_live: int, tiers: int, fields: int,
+              pred_kinds: List[str], agg_kinds: List[str], seed: int,
+              dev: torch.device, select: float = 0.5,
+              empty_last: bool = False, pos_dtype: Any = np.int64
+              ) -> Dict[str, Any]:
+    """A6's operands as a partition of a storage concat holds them: each
+    row's concat of ``tiers`` components, each component's postings a
+    permutation of its slots (an index's positions in key order), the
+    probe's slice [a, b) ``select`` of each, the live selection
+    ``n_live`` sorted slots (about 0.9 of the concat), padded to a pow2
+    ``live_p2`` with zeros; ``empty_last``: the last row is a padding row
+    (n_live 0, zero-width slices); ``pos_dtype``: the postings' dtype."""
+    rng = np.random.default_rng(seed)
+    total = -(-int(n_live / 0.9) // tiers) * tiers
+    total_p2 = 1 << (total - 1).bit_length()
+    live_p2 = 1 << (n_live - 1).bit_length()
+    per = total // tiers
+    tier_t = []
+    abo = np.zeros((rows, fields * tiers, 3), np.int64)
+    for f in range(fields):
+        fp = []
+        for t in range(tiers):
+            w = 1 << (per - 1).bit_length()
+            st = np.zeros((rows, w), pos_dtype)
+            for r in range(rows):
+                st[r, :per] = rng.permutation(per)
+                a = int(rng.integers(0, max(1, int(per * (1 - select)))))
+                b = min(per, a + int(per * select))
+                if empty_last and r == rows - 1:
+                    a = b = 0
+                abo[r, f * tiers + t] = (a, b, t * per)
+            fp.append(torch.from_numpy(st).to(dev))
+        tier_t.append(fp)
+    idx = np.zeros((rows, live_p2), np.int64)
+    nl = np.zeros(rows, np.int64)
+    for r in range(rows):
+        if empty_last and r == rows - 1:
+            continue
+        nl[r] = n_live
+        idx[r, :n_live] = np.sort(rng.choice(total, n_live, replace=False))
+    pcols = _stacked_columns(rng, rows, live_p2, pred_kinds, True, dev)
+    acols = _stacked_columns(rng, rows, live_p2, agg_kinds, False, dev)
+    in_slice = int(np.clip(abo[:, :, 1] - abo[:, :, 0], 0, None).sum())
+    return {"tiers": tier_t, "abo": abo,
+            "idx": torch.from_numpy(idx).to(dev), "n_live": nl,
+            "preds": pcols, "aggs": acols, "total_p2": total_p2,
+            "live_p2": live_p2, "in_slice": in_slice}
+
+
+def a6_case(rows: int, n_live: int, tiers: int, fields: int,
+            pred_kinds: List[str], agg_kinds: List[str], seed: int,
+            dev: torch.device, empty_last: bool = False,
+            pos_dtype: Any = np.int64) -> Dict[str, Any]:
+    """A6 in mask mode (no aggregate columns) or aggregate mode."""
+    a = a6_arrays(rows, n_live, tiers, fields, pred_kinds, agg_kinds, seed,
+                  dev, empty_last=empty_last, pos_dtype=pos_dtype)
+    args = (a["tiers"], a["abo"], a["idx"], a["n_live"], a["preds"],
+            a["aggs"], a["total_p2"], a["live_p2"])
+    floats = _float_slots(CH.N_COUNTS, agg_kinds)
+    lanes = rows * a["live_p2"]
+    mode = "aggregate" if agg_kinds else "mask"
+    return {"kernel": "fused_index_chain",
+            "label": (f"{mode} R={rows} n_live={n_live} live_p2="
+                      f"{a['live_p2']} total_p2={a['total_p2']} fields="
+                      f"{fields} tiers={tiers} K={len(pred_kinds)} "
+                      f"M={len(agg_kinds)}"
+                      + (" last row empty" if empty_last else "")),
+            "run": lambda: CH.chain_cuda(*args),
+            "plain": lambda: CH.chain_plain(*args),
+            "library": None,
+            "compare": lambda got, ref: raw_compare(
+                CH.unpack(got.cpu().numpy(), rows,
+                          CH.N_COUNTS + 4 * len(agg_kinds), a["live_p2"]),
+                ref, floats),
+            "args": args,
+            # in-slice positions, the live index, the columns, the mask
+            # and the scalars
+            "bytes": np.dtype(pos_dtype).itemsize * a["in_slice"]
+            + 8 * lanes
+            + _col_bytes_rows(a["preds"], rows, a["live_p2"])
+            + _col_bytes_rows(a["aggs"], rows, a["live_p2"]) + lanes
+            + 8 * rows * (CH.N_COUNTS + 4 * len(agg_kinds)),
+            "ops": a["in_slice"] + lanes * (fields + 2 * len(pred_kinds)
+                                            + 4 * len(agg_kinds))}
+
+
+def exchange_case(p: int, cap: int, seed: int, dev: torch.device
+                  ) -> Dict[str, Any]:
+    """The exchange of two int64 columns' data and validity planes
+    [p, p, cap] (grouped_topk's partial aggregates: author-id, count)."""
+    rng = np.random.default_rng(seed)
+    planes = []
+    for _ in range(2):
+        planes.append(rng.integers(0, 1 << 40, (p, p, cap), dtype=np.int64))
+        planes.append(rng.random((p, p, cap)) < 0.7)
+    buf, meta = SO.pack_planes(planes)
+    send = torch.from_numpy(buf).to(dev)
+    nbytes = sum(a.nbytes for a in planes)
+
+    return {"kernel": "spmd_exchange",
+            "label": f"p={p} cap={cap} planes={len(planes)}",
+            "run": lambda: SO.exchange_cuda(send, meta, p),
+            "plain": lambda: SO.exchange_plain(send, meta, p),
+            "library": None, "compare": _mask_compare,
+            "bytes": 2 * nbytes, "ops": 0}
+
+
+def merge_case(rows: int, m: int, op: str, seed: int, dev: torch.device,
+               dtype: Any = np.float64) -> Dict[str, Any]:
+    """A merge of [rows, m] partials (a NaN in one column of floats)."""
+    rng = np.random.default_rng(seed)
+    if np.dtype(dtype).kind == "f":
+        x = rng.standard_normal((rows, m)).astype(dtype) * 1e3
+        x[rows // 2, m // 2] = np.nan
+    else:
+        x = rng.integers(-10**12, 10**12, (rows, m)).astype(dtype)
+    t = torch.from_numpy(x).to(dev)
+    lib = {"sum": lambda: torch.sum(t, 0), "min": lambda: torch.amin(t, 0),
+           "max": lambda: torch.amax(t, 0)}[op]
+
+    def compare(got, ref):
+        g, r = got.cpu().numpy(), ref.cpu().numpy()
+        return 0.0 if np.array_equal(g, r, equal_nan=g.dtype.kind == "f") \
+            else math.inf
+    return {"kernel": "spmd_merge",
+            "label": f"{op} [{rows}, {m}] {np.dtype(dtype).name}",
+            "run": lambda: SO.merge_cuda(t, op),
+            "plain": lambda: SO.merge_plain(t, op),
+            "library": lib, "compare": compare,
+            "bytes": x.nbytes + x.nbytes // rows, "ops": x.size}
+
+
+def rung_cases(dev: torch.device, seed: int = 0) -> List[Dict]:
+    """Rungs 3 and 4 at the main path's shapes: one messages partition of
+    chip_smoke.py's 2,000,000 over 4 partitions is ~2**19 live lanes over
+    4 flushed components; A6 in mask mode (the index range scan: one
+    field, no validate range) and aggregate mode (an int64 and a float64
+    column) at R = 1 and R = 4, with a padding row; stacked K1 and K2 at
+    R = 4 (the skip-index select and the exact-range aggregate); the
+    exchange of grouped_topk's two columns at p = 4; a merge of 4
+    partitions' partials."""
+    n = 500_000
+    return [a6_case(1, n, 4, 1, [], [], seed + 30, dev),
+            a6_case(4, n, 4, 1, [], [], seed + 31, dev),
+            a6_case(1, n, 4, 1, [], ["id", "f64n"], seed + 32, dev),
+            a6_case(4, n, 4, 1, ["ts"], ["id", "f64n"], seed + 33, dev,
+                    empty_last=True),
+            k1_rows_case(4, 1 << 19, ["ts"], seed + 34, dev),
+            k2_rows_case(4, 1 << 19, ["ts"], ["id", "f64n"], seed + 35,
+                         dev),
+            exchange_case(4, 1 << 14, seed + 36, dev),
+            merge_case(4, 1 << 10, "sum", seed + 37, dev)]
+
+
+# ---------------------------------------------------------------------------
 # model-stack cases (K7-K9): float results within a relative tolerance
 # ---------------------------------------------------------------------------
 
@@ -926,6 +1209,15 @@ def _time_ms(fn: Callable[[], Any], iters: int, warmup: int = 2
     return {"ms": call, "call_ms": call, "timer": "cuda_events"}
 
 
+def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal tensors, NaN equal to NaN."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype.is_floating_point:
+        return bool(((a == b) | (a.isnan() & b.isnan())).all())
+    return torch.equal(a, b)
+
+
 def run_case(case: Dict[str, Any], iters: int = 20, timed: bool = True
              ) -> Dict[str, Any]:
     """Check the kernel against its plain version on the same inputs,
@@ -942,8 +1234,7 @@ def run_case(case: Dict[str, Any], iters: int = 20, timed: bool = True
             err == 0.0 or case["kernel"] == "fused_filter_aggregate")
     again = case["run"]()                 # the kernel is deterministic
     torch.cuda.synchronize()
-    stable = all(torch.equal(a, b)
-                 for a, b in zip(_parts(got), _parts(again)))
+    stable = all(_same(a, b) for a, b in zip(_parts(got), _parts(again)))
     mem_s = case["bytes"] / HBM_BYTES_PER_S
     ops_s = case.get("tc_s", case["ops"] / SCALAR_OPS_PER_S)
     out = {"kernel": case["kernel"], "label": case["label"],

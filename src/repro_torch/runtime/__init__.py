@@ -1,1 +1,2 @@
-"""Partition runtime (rung 4 is not ported yet; see ``spmd``)."""
+"""Partition runtime (rung 4): stacked launches over the partition lanes
+of one device; see ``spmd``."""

@@ -29,6 +29,7 @@ rows_fallback.
 
 from __future__ import annotations
 
+import contextlib
 import heapq
 import time
 from dataclasses import dataclass, field
@@ -72,7 +73,7 @@ class ExecStats:
     #                             compiled plan shape (columnar/plancache)
     plan_cache_misses: int = 0  # fused chain plan shapes first seen (and
     #                             trace-compiled) during this query
-    spmd_dispatches: int = 0    # shard_map'ed all-partition dispatches
+    spmd_dispatches: int = 0    # stacked all-partition dispatches
     #                             this query made (runtime/spmd; 0 off-mesh)
     spmd_partitions: int = 0    # partitions those dispatches covered (the
     #                             python loop would have paid one dispatch
@@ -476,13 +477,15 @@ def _finish_stats(ex: "Executor", traces0: int,
     ex.stats.spmd_partitions = sp1[1] - sp0[1]
 
 
-def _refuse_mesh(mesh: Optional[Any]) -> None:
-    """The partition-mesh runtime (rung 4) is not ported yet: a mesh
-    argument is refused, never ignored."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "run_query(mesh=...): the partition-mesh runtime (rung 4) is "
-            "not ported to repro_torch yet")
+def _mesh_context(mesh: Optional[Any]):
+    """The partition mesh a query runs under: none, ``mesh`` lanes (an
+    int), or the given ``PartitionMesh``."""
+    from ..runtime import spmd as _sp
+    if mesh is None:
+        return contextlib.nullcontext()
+    if isinstance(mesh, int) and not isinstance(mesh, bool):
+        return _sp.use_partition_mesh(mesh)
+    return _sp.use_partition_mesh(mesh=mesh)
 
 
 def run_query(plan, datasets: Dict[str, PartitionedDataset],
@@ -498,10 +501,12 @@ def run_query(plan, datasets: Dict[str, PartitionedDataset],
     With ``snapshot=True`` every dataset that supports ``pin()`` is
     pinned for the duration of the query, so the whole plan executes
     against one consistent LSM state even while concurrent writers are
-    ingesting (snapshot isolation; pins are released on return).
-    ``mesh`` is accepted for signature parity with the reference and
-    raises ``NotImplementedError`` when given (rung 4 is not ported)."""
-    _refuse_mesh(mesh)
+    ingesting (snapshot isolation; pins are released on return).  With
+    ``mesh`` (a ``runtime.spmd.PartitionMesh``, or an int: that many
+    partition lanes on the one device) the columnar engine's
+    per-partition loops run as single stacked dispatches over the
+    partition lanes (``runtime/spmd``); results are bit-identical to the
+    loop's."""
     if catalog is None:
         catalog = _default_catalog(datasets)
     phys = optimize(plan, catalog, config)
@@ -520,15 +525,16 @@ def run_query(plan, datasets: Dict[str, PartitionedDataset],
         from ..columnar import plancache as _pc
         from ..kernels import columnar_ops as K
         from ..runtime import spmd as _sp
-        ex = Executor(exec_datasets, vectorize=vectorize)
-        traces0 = K.trace_count()
-        kt0 = _obs.kernel_totals()
-        pc0 = _pc.totals()
-        sp0 = _sp.dispatch_totals()
-        parts = ex.execute_op(phys)
-        _finish_stats(ex, traces0, kt0, pc0, sp0)
-        rows = [r for p in parts for r in p]
-        return rows, ex
+        with _mesh_context(mesh):
+            ex = Executor(exec_datasets, vectorize=vectorize)
+            traces0 = K.trace_count()
+            kt0 = _obs.kernel_totals()
+            pc0 = _pc.totals()
+            sp0 = _sp.dispatch_totals()
+            parts = ex.execute_op(phys)
+            _finish_stats(ex, traces0, kt0, pc0, sp0)
+            rows = [r for p in parts for r in p]
+            return rows, ex
     finally:
         for snap in pinned:
             snap.release()
@@ -584,13 +590,14 @@ def explain_analyze(plan, datasets: Dict[str, PartitionedDataset],
     from ..columnar import plancache as _pc
     from ..kernels import columnar_ops as K
     from ..runtime import spmd as _sp
-    _refuse_mesh(mesh)
+    ctx = _mesh_context(mesh)
     traces0 = K.trace_count()
     kt0 = _obs.kernel_totals()
     pc0 = _pc.totals()
     sp0 = _sp.dispatch_totals()
     t0 = time.perf_counter()
-    parts = ex.execute_op(phys)
+    with ctx:
+        parts = ex.execute_op(phys)
     wall = time.perf_counter() - t0
     _finish_stats(ex, traces0, kt0, pc0, sp0)
     rows = [r for p in parts for r in p]

@@ -96,14 +96,26 @@ def test_set_device_rejects_unknown_names():
 
 
 def test_run_query_refuses_a_mesh():
+    """Once refused until the partition runtime (rung 4) landed: a mesh of
+    n lanes now runs, and a mesh it cannot run (no lanes, or an object that
+    is no ``PartitionMesh``) is refused, never ignored."""
     import repro_torch
     from repro_torch.configs.tinysocial import build_dataverse
     from repro_torch.core import algebra as A
+    from repro_torch.runtime.spmd import PartitionMesh
     from repro_torch.storage.query import run_query
     repro_torch.set_device("cpu")
     _, ds = build_dataverse(10, 20, num_partitions=2, flush_threshold=8)
-    with pytest.raises(NotImplementedError, match="rung 4"):
-        run_query(A.scan("MugshotUsers"), ds, vectorize=True, mesh=2)
+    plan = A.scan("MugshotUsers")
+    with pytest.raises(ValueError, match="lane"):
+        run_query(plan, ds, vectorize=True, mesh=0)
+    with pytest.raises(TypeError, match="PartitionMesh"):
+        run_query(plan, ds, vectorize=True, mesh="2")
+    rows, _ = run_query(plan, ds, vectorize=True)
+    mesh = PartitionMesh(2, repro_torch.kernels.ops.target())
+    for m in (2, mesh):
+        got, _ = run_query(plan, ds, vectorize=True, mesh=m)
+        assert sorted(r["id"] for r in got) == sorted(r["id"] for r in rows)
 
 
 def test_ngram_index_refused_until_fuzzy_slice():

@@ -1,5 +1,6 @@
-"""The PyTorch port's CUDA kernels (K1-K9, A7) against their plain PyTorch
-versions on the card, at small shapes and at the main paths' shapes, and
+"""The PyTorch port's CUDA kernels (K1-K9, A7, and rungs 3 and 4: A6,
+stacked K1 and K2, the exchange and the merges) against their plain
+PyTorch versions on the card, at small shapes and at the main paths' shapes, and
 the port's query and model serving paths on the card against the same
 paths on the CPU.
 
@@ -362,20 +363,28 @@ def test_query_path_on_card_equals_cpu(dev):
                  pred=lambda r: r["timestamp"] >= lo, fields=["timestamp"],
                  ranges={"timestamp": (lo, None)}, hints=["skip-index"]),
     ]
+    from repro_torch.columnar import plancache
     out = {}
-    for name in ("cuda", "cpu"):
-        repro_torch.set_device(name)
-        _, ds = build_dataverse(400, 6000, num_partitions=3,
-                                flush_threshold=100)
-        res = []
-        for plan in plans:
-            rows, ex = run_query(plan, ds, vectorize=True)
-            res.append((sorted(repr(sorted(r.items())) for r in rows),
-                        ex.stats.rows_fallback, ex.stats.rows_vectorized))
-        res.append(sorted(repr(sorted(r.items()))
-                          for r in ds["MugshotMessages"].scan()))
-        out[name] = res
-    repro_torch.set_device("cuda")
+    # the per-operator chain (the fused one has its own test below), so
+    # the index probe launches K4
+    plancache.set_enabled(False)
+    try:
+        for name in ("cuda", "cpu"):
+            repro_torch.set_device(name)
+            _, ds = build_dataverse(400, 6000, num_partitions=3,
+                                    flush_threshold=100)
+            res = []
+            for plan in plans:
+                rows, ex = run_query(plan, ds, vectorize=True)
+                res.append((sorted(repr(sorted(r.items())) for r in rows),
+                            ex.stats.rows_fallback,
+                            ex.stats.rows_vectorized))
+            res.append(sorted(repr(sorted(r.items()))
+                              for r in ds["MugshotMessages"].scan()))
+            out[name] = res
+    finally:
+        repro_torch.set_device("cuda")
+        plancache.set_enabled(True)
     assert out["cuda"] == out["cpu"]
     counts = SC.launch_counts()
     for k in ("range_mask", "fused_filter_aggregate", "sorted_intersect_mask",
@@ -759,3 +768,181 @@ def _to(tree, dev):
     if isinstance(tree, list):
         return [_to(v, dev) for v in tree]
     return tree.to(dev)
+
+
+# ---------------------------------------------------------------------------
+# rungs 3 and 4: A6, stacked K1 / K2, the exchange and the merges
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("rows", [1, 4])
+@pytest.mark.parametrize("n_live", [1, 37, 1000, 70_001])
+@pytest.mark.parametrize("fields,tiers,preds,aggs", [
+    (1, 1, [], []),                                   # mask mode
+    (2, 3, ["ts"], []),
+    (3, 2, ["f64", "code"], ["id", "f64n", "ts", "code"]),
+    (1, 4, ["ts", "id"], ["f64", "nan", "f64n"]),     # NaN in aggregates
+    (2, 2, [], ["id", "f64n", "ts", "code", "f64n", "id", "code", "ts",
+                "f64n"])])                            # M = 9: two launches
+def test_fused_chain_kernel(dev, rows, n_live, fields, tiers, preds, aggs):
+    """A6 against its plain version: 1-3 fields over multi-tier postings,
+    int64 / float64 / datetime / int32-code predicates and aggregates,
+    float64 sums bit for bit, and (at R = 4) a padding row with n_live 0
+    and zero-width slices."""
+    case = SC.a6_case(rows, n_live, tiers, fields, preds, aggs,
+                      seed=n_live + rows + fields, dev=dev,
+                      empty_last=rows > 1)
+    r = SC.run_case(case, timed=False)
+    assert r["ok"], r
+    if rows > 1:
+        from repro_torch.kernels import chain_ops as CH
+        raw, mask = CH.fused_chain(*case["args"])
+        assert (raw[-1, :3] == 0).all() and not mask[-1].any()
+
+
+@pytest.mark.parametrize("pos_dtype", ["int32", "int64"])
+@pytest.mark.parametrize("select", [0.0, 0.3, 1.0])
+def test_fused_chain_slices(dev, pos_dtype, select):
+    """Empty, partial and whole probe slices of int32 and int64 postings;
+    a row's result equals the same row run alone (R = 1)."""
+    import numpy as np
+    from repro_torch.kernels import chain_ops as CH
+    a = SC.a6_arrays(4, 5000, 3, 2, ["ts"], ["f64n", "id"], seed=9,
+                     dev=dev, select=select, pos_dtype=np.dtype(pos_dtype))
+    args = (a["tiers"], a["abo"], a["idx"], a["n_live"], a["preds"],
+            a["aggs"], a["total_p2"], a["live_p2"])
+    raw, mask = CH.fused_chain(*args)
+    floats = [3 + 1, 3 + 2, 3 + 3]
+    assert SC.raw_compare((raw, mask), CH.chain_plain(*args), floats) == 0
+    for r in range(4):
+        one = ([[t[r:r + 1] for t in fp] for fp in a["tiers"]],
+               a["abo"][r:r + 1], a["idx"][r:r + 1], a["n_live"][r:r + 1],
+               [(d[r:r + 1], v[r:r + 1], lo[r:r + 1], hi[r:r + 1])
+                for d, v, lo, hi in a["preds"]],
+               [(d[r:r + 1], v[r:r + 1]) for d, v in a["aggs"]],
+               a["total_p2"], a["live_p2"])
+        raw1, mask1 = CH.fused_chain(*one)
+        assert np.array_equal(raw1[0], raw[r]) and \
+            np.array_equal(mask1[0], mask[r])
+
+
+@pytest.mark.parametrize("rows", [1, 2, 4])
+@pytest.mark.parametrize("n", [1, 37, 4096, (1 << 19)])
+@pytest.mark.parametrize("kinds", [["ts"], ["id", "f64"], ["code", "ts"],
+                                   ["id", "ts", "f64", "code", "nan", "id",
+                                    "ts", "f64", "code"]])
+def test_stacked_range_mask_equals_loop_kernel(dev, rows, n, kinds):
+    """Stacked K1 against its plain version, and each row bit for bit
+    against the loop's K1 on that row with that row's bounds."""
+    from repro_torch.kernels import columnar_ops as CO
+    case = SC.k1_rows_case(rows, n, kinds, seed=n + rows, dev=dev)
+    r = SC.run_case(case, timed=False)
+    assert r["ok"], r
+    got = case["run"]()
+    for i in range(rows):
+        cols = [(x[i], v[i], lo[i], hi[i]) for x, v, lo, hi in case["cols"]]
+        assert torch.equal(got[i], CO.range_mask_cuda(cols, n)), i
+
+
+@pytest.mark.parametrize("rows", [1, 4])
+@pytest.mark.parametrize("n", [1, 37, 4096, (1 << 19)])
+@pytest.mark.parametrize("preds,aggs", [
+    (["ts"], ["id", "f64n"]), (["f64", "code"], ["code", "nan", "ts"]),
+    (["id"], ["id", "f64n", "ts", "code", "f64n", "id", "code", "ts",
+              "f64n"])])
+def test_stacked_filter_aggregate_equals_loop_kernel(dev, rows, n, preds,
+                                                     aggs):
+    """Stacked K2 against its plain version (float64 sums bit for bit),
+    and each row's counts and scalars bit for bit against the loop's K2 on
+    that row."""
+    import numpy as np
+    from repro_torch.kernels import columnar_ops as CO
+    case = SC.k2_rows_case(rows, n, preds, aggs, seed=n + rows, dev=dev)
+    r = SC.run_case(case, timed=False)
+    assert r["ok"], r
+    from repro_torch.kernels import spmd_ops as SO
+    raw, _mask = SO.filter_aggregate_rows(case["pcols"], case["acols"],
+                                          rows, n)
+    for i in range(rows):
+        pcols = [(x[i], v[i], lo[i], hi[i])
+                 for x, v, lo, hi in case["pcols"]]
+        acols = [(x[i], v[i], None, None) for x, v in case["acols"]]
+        loop = CO.filter_aggregate_cuda(pcols, acols, n, dev).cpu().numpy()
+        assert np.array_equal(loop, raw[i]), i
+
+
+@pytest.mark.parametrize("p,cap", [(2, 1), (2, 64), (4, 3), (4, 1 << 14),
+                                   (8, 1000)])
+def test_exchange_kernel(dev, p, cap):
+    """The exchange against its plain version: 16-byte blocks and byte
+    blocks (bool planes, odd capacities)."""
+    r = SC.run_case(SC.exchange_case(p, cap, seed=p * cap, dev=dev),
+                    timed=False)
+    assert r["ok"], r
+
+
+@pytest.mark.parametrize("op", ["sum", "min", "max"])
+@pytest.mark.parametrize("rows,m", [(1, 1), (4, 7), (8, 5000)])
+@pytest.mark.parametrize("dtype", ["float64", "int64", "float32", "int32"])
+def test_merge_kernel(dev, op, rows, m, dtype):
+    import numpy as np
+    r = SC.run_case(SC.merge_case(rows, m, op, seed=rows * m, dev=dev,
+                                  dtype=np.dtype(dtype)), timed=False)
+    assert r["ok"], r
+
+
+@pytest.mark.parametrize("i", range(8))
+def test_rung_shapes(dev, i):
+    r = SC.run_case(SC.rung_cases(dev)[i], timed=False)
+    assert r["ok"], r
+
+
+def test_rungs_on_card_equal_cpu(dev):
+    """The fused chain (plan cache on) and the partition runtime at 4
+    lanes give, on the card, the rows and the engine accounting of the
+    same runs on the CPU, and launch A6, stacked K1 / K2 and the
+    exchange."""
+    import datetime as dt
+    from repro_torch.configs.tinysocial import build_dataverse
+    from repro_torch.core import algebra as A
+    from repro_torch.storage.query import run_query
+    lo, hi = dt.datetime(2014, 2, 1), dt.datetime(2015, 1, 1)
+    sel = dict(pred=lambda r: r["timestamp"] >= lo, fields=["timestamp"],
+               ranges={"timestamp": (lo, hi)})
+    aggs = {"c": ("count", "*"), "s": ("sum", "author-id")}
+    plans = [
+        (A.select(A.scan("MugshotMessages"), **sel), None),
+        (A.aggregate(A.select(A.scan("MugshotMessages"), ranges_exact=True,
+                              **sel), aggs), None),
+        (A.select(A.scan("MugshotMessages"), **sel), 4),
+        (A.aggregate(A.select(A.scan("MugshotMessages"), ranges_exact=True,
+                              **sel), aggs), 4),
+        (A.select(A.scan("MugshotMessages"), hints=["skip-index"], **sel),
+         4),
+        (A.aggregate(A.select(A.scan("MugshotMessages"), ranges_exact=True,
+                              hints=["skip-index"], **sel), aggs), 4),
+        (A.group_by(A.scan("MugshotMessages"), ["author-id"],
+                    {"c": ("count", "*")}), 4),
+    ]
+    out = {}
+    SC.reset_launch_counts()
+    for name in ("cuda", "cpu"):
+        repro_torch.set_device(name)
+        _, ds = build_dataverse(400, 6000, num_partitions=4,
+                                flush_threshold=100)
+        res = []
+        for plan, mesh in plans:
+            rows, ex = run_query(plan, ds, vectorize=True, mesh=mesh)
+            st = ex.stats
+            # hits + misses: the fused dispatches (which of the two
+            # depends on the shapes seen before, process-wide)
+            res.append((sorted(repr(sorted(r.items())) for r in rows),
+                        st.rows_fallback,
+                        st.plan_cache_hits + st.plan_cache_misses,
+                        st.spmd_dispatches, st.spmd_partitions))
+        out[name] = res
+    repro_torch.set_device("cuda")
+    assert out["cuda"] == out["cpu"]
+    counts = SC.launch_counts()
+    for k in ("fused_index_chain", "range_mask_stacked",
+              "filter_aggregate_stacked", "spmd_exchange"):
+        assert counts[k] > 0, k

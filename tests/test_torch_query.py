@@ -1,8 +1,9 @@
 """The slice test of the PyTorch port: the TinySocial columnar query path
 (rung 2) through ``repro_torch.storage.query.run_query(..., vectorize=
 True)`` against the reference's ``repro.storage.query.run_query`` on the
-same seeded data, with the reference's fused plan cache disabled (rung 3
-is not ported).
+same seeded data, with the fused plan cache disabled in both packages:
+the per-operator path of every chain (rung 3, the fused chain, has its
+own tests in ``tests/test_torch_plancache.py``).
 
 Rows must agree exactly under the differential harness's canonical form
 (float64 aggregate values within 1e-12 relative: the sum order differs),
@@ -27,6 +28,7 @@ jax = pytest.importorskip("jax")
 
 import repro_torch  # noqa: E402
 from repro_torch import obs as P_obs  # noqa: E402
+from repro_torch.columnar import plancache as P_pc  # noqa: E402
 from repro_torch.configs import tinysocial as P_ts  # noqa: E402
 from repro_torch.core import adm as P_adm  # noqa: E402
 from repro_torch.core import algebra as P_A  # noqa: E402
@@ -89,6 +91,9 @@ def REF():
 @pytest.fixture(scope="module", autouse=True)
 def _cpu():
     repro_torch.set_device("cpu")
+    P_pc.set_enabled(False)        # the per-operator path, as in REF
+    yield
+    P_pc.set_enabled(True)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,403 @@
+"""Rung 4 of the PyTorch port: the partition runtime
+(``repro_torch.runtime.spmd``), where the executor's per-partition loops
+run as one stacked launch over ``n`` partition lanes of one device.
+
+At one lane the port is held against the reference's own mesh path (a
+one-device ``shard_map``, which runs in-process): rows by their exact
+``repr``, and ``spmd_dispatches``, ``spmd_partitions``,
+``fallback_reasons``, the plan cache's hits and misses and
+``kernel_retraces``.  At 2 and 4 lanes (the reference would need as many
+devices) the port's rows equal the port's own loop and the reference's
+loop, as the reference's contract at ``tests/test_spmd.py:344,354``
+demands of its meshes.  The reference's tests of the module are mirrored
+on the port: bit-identity with the loop, one dispatch for all partitions,
+the loop without a mesh and with too few stackable partitions, the stack
+cache, plan keys split on the mesh, warm mesh queries shipping nothing,
+the merges against numpy, the exchange against the host bucketing and
+its decline of string schemas, the mesh context and ``rows_for``.
+
+Two of the reference's tests have no counterpart on one card:
+``test_pool_reshard_evicts_other_placement`` (:220) and
+``test_mesh_switch_reshards_cleanly`` (:372) check that a buffer moving
+between a device placement and a sharding over several devices is
+evicted from the old one.  The port's lanes all live on the one device,
+so a stacked operand has one placement whatever the mesh, and nothing
+reshards.
+"""
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+
+import repro_torch  # noqa: E402
+from repro_torch.kernels import columnar_ops as P_K  # noqa: E402
+
+from _torch_ref import (canon, dataset, port_namespace,  # noqa: E402
+                        reference_namespace, reference_x64)
+
+PORT = port_namespace()
+SP = PORT.SP
+
+
+@pytest.fixture(scope="module")
+def REF():
+    with reference_x64():
+        ref = reference_namespace()
+        ref.PC.set_enabled(True)
+        P_K._SEEN.clear()
+        yield ref
+
+
+@pytest.fixture(autouse=True)
+def _cpu_and_cache_on():
+    repro_torch.set_device("cpu")
+    PORT.PC.set_enabled(True)
+    yield
+    PORT.PC.set_enabled(True)
+
+
+def _chain_plan(A, lo=10, hi=29):
+    return A.select(A.scan("D"), pred=lambda r: lo <= r["a"] <= hi,
+                    fields=["a"], ranges={"a": (lo, hi)},
+                    ranges_exact=True)
+
+
+def _chain_agg_plan(A):
+    return A.aggregate(_chain_plan(A),
+                       {"c": ("count", "*"), "s": ("sum", "a"),
+                        "mn": ("min", "b"), "av": ("avg", "x")})
+
+
+def _scan_select_plan(A):
+    # a range over the un-indexed DOUBLE column: no index chain, so the
+    # mesh path is batched_range_masks under SELECT
+    return A.select(A.scan("D"), pred=lambda r: 10.0 <= r["x"] <= 600.0,
+                    fields=["a", "x"], ranges={"x": (10.0, 600.0)},
+                    ranges_exact=True)
+
+
+def _scan_agg_plan(A):
+    return A.aggregate(_scan_select_plan(A),
+                       {"c": ("count", "*"), "s": ("sum", "a"),
+                        "m": ("min", "x"), "sx": ("sum", "x"),
+                        "co": ("count", "o")})
+
+
+def _grouped_plan(A):
+    # a group-by over numeric columns: its hash repartition is the
+    # exchange when the lanes equal the partitions
+    return A.group_by(A.scan("D"), ["b"], {"c": ("count", "*"),
+                                           "mx": ("max", "a")})
+
+
+PLANS = {"chain": _chain_plan, "chain_agg": _chain_agg_plan,
+         "scan_select": _scan_select_plan, "scan_agg": _scan_agg_plan,
+         "grouped": _grouped_plan}
+STATS = ("fallback_reasons", "spmd_dispatches", "spmd_partitions",
+         "plan_cache_hits", "plan_cache_misses", "kernel_retraces",
+         "rows_fallback")
+
+
+@pytest.fixture(scope="module")
+def mesh_datasets(REF):
+    kw = dict(n=160, parts=4, threshold=24, seed=3)
+    return {"D": dataset(PORT, **kw)}, {"D": dataset(REF, **kw)}
+
+
+@pytest.mark.parametrize("name", list(PLANS))
+def test_one_lane_agrees_with_reference_mesh(REF, mesh_datasets, name):
+    port, ref = mesh_datasets
+    for rep in ("cold", "warm"):
+        rows_p, ex_p = PORT.run_query(PLANS[name](PORT.A), port,
+                                      vectorize=True, mesh=1)
+        rows_r, ex_r = REF.run_query(PLANS[name](REF.A), ref,
+                                     vectorize=True, mesh=1)
+        assert canon(rows_p) == canon(rows_r), (name, rep)
+        for key in STATS:
+            assert getattr(ex_p.stats, key) == getattr(ex_r.stats, key), \
+                (name, rep, key)
+    if name != "grouped":
+        assert ex_p.stats.spmd_dispatches >= 1
+
+
+@pytest.mark.parametrize("lanes", [2, 4])
+@pytest.mark.parametrize("name", list(PLANS))
+def test_lanes_equal_the_loop(REF, mesh_datasets, name, lanes):
+    """At 2 and 4 lanes the rows equal the port's loop and the reference's
+    loop; a warm repeat ships nothing but the exchange's send planes,
+    which are built per query (as in the reference)."""
+    port, ref = mesh_datasets
+    rows_l, ex_l = PORT.run_query(PLANS[name](PORT.A), port, vectorize=True)
+    rows_r, _ = REF.run_query(PLANS[name](REF.A), ref, vectorize=True)
+    rows_m, ex_m = PORT.run_query(PLANS[name](PORT.A), port, vectorize=True,
+                                  mesh=lanes)
+    assert canon(rows_m) == canon(rows_l) == canon(rows_r)
+    assert ex_m.stats.fallback_reasons == ex_l.stats.fallback_reasons
+    # the exchange runs only where the lanes equal the 4 partitions
+    assert (ex_m.stats.spmd_dispatches >= 1) == \
+        (name != "grouped" or lanes == 4)
+    snap = PORT.obs.snapshot()
+    _, ex_w = PORT.run_query(PLANS[name](PORT.A), port, vectorize=True,
+                             mesh=lanes)
+    exch = PORT.obs.snapshot().get("kernel.spmd_exchange.h2d_bytes", 0) \
+        - snap.get("kernel.spmd_exchange.h2d_bytes", 0)
+    assert ex_w.stats.h2d_bytes == exch
+    assert (exch > 0) == (name == "grouped" and lanes == 4)
+    assert ex_w.stats.kernel_retraces == 0
+
+
+# ---------------------------------------------------------------------------
+# the reference's tests/test_spmd.py, on the port
+# ---------------------------------------------------------------------------
+
+def _ds(**kw):
+    kw.setdefault("n", 160)
+    kw.setdefault("parts", 4)
+    kw.setdefault("threshold", 24)
+    return {"D": dataset(PORT, **kw)}
+
+
+def _loop_vs_mesh(ds, plan, lanes):
+    rows_l, ex_l = PORT.run_query(plan, ds, vectorize=True)
+    rows_m, ex_m = PORT.run_query(plan, ds, vectorize=True, mesh=lanes)
+    assert canon(rows_l) == canon(rows_m)
+    assert ex_l.stats.fallback_reasons == ex_m.stats.fallback_reasons
+    return ex_l, ex_m
+
+
+@pytest.mark.parametrize("mk_plan", [_chain_plan, _chain_agg_plan,
+                                     _scan_select_plan, _scan_agg_plan])
+def test_mesh_matches_loop_bit_for_bit(mk_plan):
+    ds = _ds(seed=21)
+    _, ex_m = _loop_vs_mesh(ds, mk_plan(PORT.A), 1)
+    assert ex_m.stats.spmd_dispatches >= 1
+    assert ex_m.stats.spmd_partitions == 4
+    _, ex_w = PORT.run_query(mk_plan(PORT.A), ds, vectorize=True, mesh=1)
+    assert ex_w.stats.h2d_bytes == 0
+    assert ex_w.stats.kernel_retraces == 0
+
+
+def test_one_dispatch_replaces_the_partition_loop():
+    ds = _ds(seed=22)
+    d0, p0 = SP.dispatch_totals()
+    _, ex = PORT.run_query(_chain_plan(PORT.A), ds, vectorize=True, mesh=1)
+    d1, p1 = SP.dispatch_totals()
+    assert (d1 - d0, p1 - p0) == (1, 4)
+    assert ex.stats.spmd_dispatches == 1
+    assert ex.stats.spmd_partitions == 4
+
+
+def test_loop_fallback_without_mesh():
+    ds = _ds(seed=23)
+    _, ex = PORT.run_query(_chain_plan(PORT.A), ds, vectorize=True)
+    assert ex.stats.spmd_dispatches == 0
+    assert ex.stats.spmd_partitions == 0
+
+
+def test_fallback_when_too_few_stackable_partitions():
+    ds = _ds(n=60, parts=1, seed=24)
+    rows_l, _ = PORT.run_query(_chain_plan(PORT.A), ds, vectorize=True)
+    f0 = PORT.obs.counter("mesh.spmd_fallbacks").value
+    rows_m, ex = PORT.run_query(_chain_plan(PORT.A), ds, vectorize=True,
+                                mesh=1)
+    assert canon(rows_l) == canon(rows_m)
+    assert ex.stats.spmd_dispatches == 0
+    assert PORT.obs.counter("mesh.spmd_fallbacks").value > f0
+
+
+def test_stack_cache_returns_identical_object_for_same_inputs():
+    sc = SP.StackCache()
+    a = np.arange(5, dtype=np.int64)
+    b = np.arange(3, dtype=np.int64)
+    s1 = sc.stack([a, b], rows=2, width=8, dtype=np.int64)
+    s2 = sc.stack([a, b], rows=2, width=8, dtype=np.int64)
+    assert s1 is s2
+    assert s1.shape == (2, 8)
+    assert np.array_equal(s1[0, :5], a) and np.array_equal(s1[1, :3], b)
+    assert (s1[0, 5:] == 0).all() and (s1[1, 3:] == 0).all()
+    s3 = sc.stack([a, b], rows=2, width=16, dtype=np.int64)
+    assert s3 is not s1
+    s4 = sc.stack([a, b], rows=2, width=8, dtype=np.int64, fill=-1)
+    assert s4 is not s1 and (s4[0, 5:] == -1).all()
+    s5 = sc.stack([a, None], rows=2, width=8, dtype=np.int64)
+    assert (s5[1] == 0).all()
+
+
+def test_stack_cache_entry_dies_with_its_inputs():
+    import gc
+    sc = SP.StackCache()
+    a = np.arange(4, dtype=np.int64)
+    sc.stack([a], rows=1, width=4, dtype=np.int64)
+    assert sc.entry_count() == 1
+    del a
+    gc.collect()
+    assert sc.entry_count() == 0
+
+
+def test_plan_cache_keys_split_on_mesh():
+    ds = _ds(seed=25)
+    PORT.PC.plan_cache.clear()
+    PORT.run_query(_chain_plan(PORT.A), ds, vectorize=True)
+    e0 = PORT.PC.plan_cache.entry_count()
+    assert e0 > 0
+    PORT.run_query(_chain_plan(PORT.A), ds, vectorize=True, mesh=1)
+    e1 = PORT.PC.plan_cache.entry_count()
+    assert e1 > e0
+    PORT.run_query(_chain_plan(PORT.A), ds, vectorize=True)
+    PORT.run_query(_chain_plan(PORT.A), ds, vectorize=True, mesh=1)
+    assert PORT.PC.plan_cache.entry_count() == e1
+    # and on the lane count
+    PORT.run_query(_chain_plan(PORT.A), ds, vectorize=True, mesh=2)
+    assert PORT.PC.plan_cache.entry_count() > e1
+
+
+def test_warm_mesh_query_ships_zero_bytes():
+    ds = _ds(seed=26)
+    PORT.run_query(_chain_plan(PORT.A), ds, vectorize=True, mesh=1)
+    _, ex = PORT.run_query(_chain_plan(PORT.A), ds, vectorize=True, mesh=1)
+    assert ex.stats.h2d_bytes == 0
+    assert ex.stats.kernel_retraces == 0
+    assert ex.stats.plan_cache_hits >= 1
+    assert ex.stats.plan_cache_misses == 0
+
+
+def test_four_lanes_attribute_uploads_to_every_lane():
+    """:354's shard attribution: a cold 4-lane query's stacked uploads
+    count evenly against each lane."""
+    ds = _ds(seed=27)
+    PORT.DP.pool.clear()
+    h0 = [PORT.obs.counter(f"mesh.shard{k}.h2d_bytes").value
+          for k in range(4)]
+    _, ex_m = _loop_vs_mesh(ds, _chain_agg_plan(PORT.A), 4)
+    assert ex_m.stats.spmd_dispatches >= 1
+    h1 = [PORT.obs.counter(f"mesh.shard{k}.h2d_bytes").value
+          for k in range(4)]
+    deltas = [b - a for a, b in zip(h0, h1)]
+    assert all(d > 0 for d in deltas) and len(set(deltas)) == 1
+    _, ex_w = PORT.run_query(_chain_agg_plan(PORT.A), ds, vectorize=True,
+                             mesh=4)
+    assert ex_w.stats.h2d_bytes == 0
+    assert ex_w.stats.kernel_retraces == 0
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 4])
+@pytest.mark.parametrize("op,merge,red", [
+    ("sum", SP.psum_merge, np.sum),
+    ("min", SP.pmin_merge, np.min),
+    ("max", SP.pmax_merge, np.max)])
+def test_collective_merge_matches_numpy(op, merge, red, lanes):
+    """The merges against numpy, with the rows padded to the lanes by the
+    operation's identity (3 partials on 2 and 4 lanes), a NaN in one
+    column, and int64 partials."""
+    rng = np.random.default_rng(11)
+    parts = [rng.normal(size=(7,)) for _ in range(3)]
+    parts[1][4] = np.nan
+    ints = rng.integers(-10**12, 10**12, (3, 5))
+    with SP.use_partition_mesh(lanes):
+        got = merge(parts)
+        got_i = merge(ints)
+        got_1 = merge(np.asarray([2.5, -1.0, 4.0]))
+    assert np.array_equal(np.asarray(got), red(parts, axis=0),
+                          equal_nan=True)
+    assert np.array_equal(got_i, red(ints, axis=0))
+    assert got_1.shape == (1,) and got_1[0] == red([2.5, -1.0, 4.0])
+
+
+def test_merge_needs_an_active_mesh():
+    with pytest.raises(RuntimeError, match="mesh"):
+        SP.psum_merge(np.ones((2, 3)))
+
+
+def _host_buckets(cparts, keys, p):
+    O, CB = PORT.O, PORT.ColumnBatch
+    buckets = [[] for _ in range(p)]
+    for i, b in enumerate(cparts):
+        if not len(b):
+            continue
+        ids = O.partition_ids(b, keys, p)
+        for j in range(p):
+            sel = ids == j
+            if sel.any():
+                buckets[j].append(b.filter(sel))
+    return [CB.concat(bs) if bs else CB({}, 0) for bs in buckets]
+
+
+def _num_batch(rng, n):
+    return PORT.ColumnBatch({
+        "k": PORT.Column("i64", rng.integers(0, 100, n).astype(np.int64),
+                         np.ones(n, bool), None),
+        "v": PORT.Column("f64", rng.normal(size=n), rng.random(n) < 0.9,
+                         None),
+    }, n)
+
+
+@pytest.mark.parametrize("p", [2, 4])
+def test_exchange_matches_host_bucketing(p):
+    rng = np.random.default_rng(7)
+    sizes = [17, 0, 33, 9][:p]
+    cparts = [_num_batch(rng, n) for n in sizes]
+    host = _host_buckets(cparts, ("k",), p)
+    e0 = PORT.obs.snapshot().get("kernel.spmd_exchange.dispatches", 0)
+    with SP.use_partition_mesh(p):
+        got = SP.exchange_batches(cparts, ("k",), p)
+    assert got is not None
+    assert PORT.obs.snapshot()["kernel.spmd_exchange.dispatches"] == e0 + 1
+    out, moved = got
+    assert moved == sum(
+        int((PORT.O.partition_ids(b, ("k",), p) != i).sum())
+        for i, b in enumerate(cparts) if len(b))
+    for j in range(p):
+        assert len(out[j]) == len(host[j])
+        for nm in ("k", "v"):
+            a, b = out[j].columns[nm], host[j].columns[nm]
+            n = len(out[j])
+            assert np.array_equal(a.data[:n], b.data[:n])
+            assert np.array_equal(a.valid[:n], b.valid[:n])
+
+
+def test_exchange_declines_string_schemas_and_other_lane_counts():
+    rng = np.random.default_rng(5)
+    p = 4
+
+    def mk(n):
+        b = _num_batch(rng, n)
+        vals = [f"s{int(v) % 3}" for v in b.columns["k"].data[:n]]
+        b.columns["s"] = PORT.build_column(vals, "str")
+        return b
+    cparts = [mk(8) for _ in range(p)]
+    with SP.use_partition_mesh(p):
+        assert SP.exchange_batches(cparts, ("k",), p) is None
+    nums = [_num_batch(rng, 8) for _ in range(p)]
+    with SP.use_partition_mesh(2):      # lanes != partitions: host path
+        assert SP.exchange_batches(nums, ("k",), p) is None
+
+
+def test_mesh_context_and_key():
+    assert SP.active_mesh() is None
+    assert SP.mesh_key() is None
+    with SP.use_partition_mesh(1):
+        m = SP.active_mesh()
+        assert m is not None and SP.mesh_size() == 1
+        key = SP.mesh_key()
+        assert key is not None and key[0] == SP.PART_AXIS
+        with SP.use_partition_mesh(1):
+            assert SP.mesh_key() == key
+        with SP.use_partition_mesh(4):
+            assert SP.mesh_size() == 4 and SP.mesh_key() != key
+        assert SP.active_mesh() is m
+    assert SP.active_mesh() is None
+    with pytest.raises(ValueError):
+        SP.partition_mesh(0)
+    with pytest.raises(TypeError):
+        with SP.use_partition_mesh(mesh=object()):
+            pass
+
+
+def test_rows_for_rounds_up_to_mesh_multiple():
+    m = SP.partition_mesh(1)
+    assert SP.rows_for(1, m) == 1
+    assert SP.rows_for(3, m) == 3
+    m4 = SP.partition_mesh(4)
+    assert SP.rows_for(3, m4) == 4 and SP.rows_for(5, m4) == 8
+    assert SP.rows_for(0, m4) == 4
