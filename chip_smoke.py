@@ -866,7 +866,11 @@ def main() -> int:
     t0 = time.perf_counter()
     rung3_phase(ds, rec, main_rows)
     rung3_counts = selfcheck.launch_counts()
-    print(f"rung3: launches {json.dumps(rung3_counts)}; phase took "
+    a6 = selfcheck.KERNELS["fused_index_chain"]["wrapper"]
+    a6_clears = {"rung3": a6.clears}
+    print(f"rung3: launches {json.dumps(rung3_counts)}; A6 dispatches "
+          f"that zeroed the flags first {a6.clears} (the others: the "
+          f"scatter and pass 2, no memset); phase took "
           f"{time.perf_counter() - t0} s (host clock)")
     for k in RUNG3_PATH:
         check(rung3_counts[k] > 0, f"kernel {k} never launched on the "
@@ -877,7 +881,9 @@ def main() -> int:
     t0 = time.perf_counter()
     rung4_phase(ds, rec, main_rows)
     rung4_counts = selfcheck.launch_counts()
-    print(f"rung4: launches {json.dumps(rung4_counts)}; phase took "
+    a6_clears["rung4"] = a6.clears
+    print(f"rung4: launches {json.dumps(rung4_counts)}; A6 dispatches "
+          f"that zeroed the flags first {a6.clears}; phase took "
           f"{time.perf_counter() - t0} s (host clock)")
     for k in RUNG4_PATH:
         check(rung4_counts[k] > 0, f"kernel {k} never launched on the "
@@ -944,6 +950,8 @@ def main() -> int:
                 for t, n in sp[name].items()}
         if name == "set_intersect_counts":
             entry["launches_split"] = k6_split
+        if name == "fused_index_chain":   # memsets of the pooled flags
+            entry["flag_clears"] = a6_clears
         if len(results[name]) > 1:
             entry["other_shapes"] = [
                 {k: o[k] for k in ("label", "max_abs_err", "ms", "call_ms",

@@ -1,0 +1,65 @@
+#!/usr/bin/env python3
+"""A6 (fused index chain) and stacked K2 at ``selfcheck.rung_cases``'
+shapes, split launch by launch: the device µs a call of each kernel,
+memset and copy they run, by name (``time_model_kernels.split_us``, L2
+write-flushed before each call).  Then the same cases built without the
+last block's fold of the float64 node sums (``-DK2_PROBE_NO_TAIL``), which
+leaves the scan and the partials: the variants' sums are wrong by design
+and only their times are read.  One JSON line a (build, case).
+
+Usage:  python scripts/probes/a6_k2_split.py [--iters 50]
+        (from the repository root)
+"""
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT / "scripts"))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--iters", type=int, default=50)
+    args = ap.parse_args()
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import selfcheck as SC
+    from time_model_kernels import split_us
+    if not torch.cuda.is_available():
+        print("a6_k2_split: no CUDA device", file=sys.stderr)
+        return 2
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True)
+    print(f"card: {card.stdout.strip()}", flush=True)
+    dev = torch.device("cuda", 0)
+    base = list(ops.NVCC_FLAGS)
+    for name, flags in (("whole", []), ("no_tail", ["-DK2_PROBE_NO_TAIL"])):
+        ops.NVCC_FLAGS[:] = base + flags
+        ops._LIB[0] = None
+        ops.lib()
+        for case in SC.rung_cases(dev):
+            if case["kernel"] not in ("fused_index_chain",
+                                      "filter_aggregate_stacked"):
+                continue
+            r = SC.run_case(case, iters=args.iters, timed=name == "whole")
+            split = split_us(case["run"], args.iters)
+            print(json.dumps({"build": name, "label": case["label"],
+                              "kernel": case["kernel"],
+                              "ok": r["ok"], "ms": r.get("ms"),
+                              "bound_ms": r["bound_ms"],
+                              "split_us": split,
+                              "span_us": split.pop("span")}),
+                  flush=True)
+    ops.NVCC_FLAGS[:] = base
+    ops._LIB[0] = None
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

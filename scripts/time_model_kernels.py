@@ -18,14 +18,20 @@ on the operands the two bitset FuzzyJoins of ``chip_smoke.py`` hand it
 with the wrapper replaced by a recorder), each with its live pairs and
 with the pairs padded to a power of two (what a tree that counts the
 padding launches), and on 2**18 pairs drawn uniformly (the earlier
-runs' case).
+runs' case), and rungs 3 and 4's A6 (fused index chain: its four
+``selfcheck.rung_cases``, mask and aggregate mode at R = 1 and 4) and
+stacked K2 (R = 4, n = 2**19, K = 1, M = 2), and the exchange
+(``spmd_exchange``: grouped_topk's four [4, 4, 2**14] planes) beside a
+yardstick no single PyTorch call gives: one ``transpose(0, 1).contiguous()``
+a plane, summed (``yardstick_ms``).
 
 Usage:  python scripts/time_model_kernels.py [--src DIR [--src DIR]]
             [--kernels rmsnorm,lsm_decode_attention,flash_attention,
                        fused_filter_aggregate,t_occurrence_mask,
                        edit_distances,sorted_intersect_mask,
                        set_intersect_counts,range_mask,
-                       bitset_intersect_counts] [--iters 50]
+                       bitset_intersect_counts,fused_index_chain,
+                       stacked_filter_aggregate,spmd_exchange] [--iters 50]
 
 Each ``--src`` is a directory holding a ``repro_torch`` package (the
 default is this checkout's ``src``).  Every tree runs in a process of its
@@ -38,8 +44,13 @@ writing back the ~50 MB of dirty lines the flush leaves in L2), and
 ``ms_clean``, the device time of the kernel's own launches (found by name
 in the profiler's trace) after a flush that only READS 256 MB, which
 leaves L2 clean, as a decode step finds it after the weight-reading
-products.  Prints the card line, then one JSON object per (tree, run,
-case).
+products.  Every case also prints ``split``: the device µs a call of each
+kernel, memset and copy it runs, by name, and under ``span`` the union of
+their device intervals, after the same write flush (``split_us``).  This
+script computes ``split`` itself, so two trees are timed by one
+definition even where their ``selfcheck`` modules define ``ms``
+differently; trees that launch different work compare launch by launch.
+Prints the card line, then one JSON object per (tree, run, case).
 """
 
 from __future__ import annotations
@@ -64,10 +75,17 @@ KERNELS = {"rmsnorm": ("rmsnorm",), "lsm_decode_attention": ("decode_partial",),
            "sorted_intersect_mask": ("intersect",),
            "set_intersect_counts": ("intersect",),
            "range_mask": ("range_mask",),
-           "bitset_intersect_counts": ("bitset_intersect",)}
+           "bitset_intersect_counts": ("bitset_intersect",),
+           "fused_index_chain": ("chain", "agg_", "Memset", "Memcpy"),
+           "stacked_filter_aggregate": ("agg_",),
+           "spmd_exchange": ("exchange",)}
 SERVE = ("rmsnorm", "lsm_decode_attention", "flash_attention")
 MAIN = ("fused_filter_aggregate", "edit_distances", "sorted_intersect_mask",
         "set_intersect_counts")
+# the rung cases' selfcheck kernel names, by option
+RUNG = {"fused_index_chain": "fused_index_chain",
+        "stacked_filter_aggregate": "filter_aggregate_stacked",
+        "spmd_exchange": "spmd_exchange"}
 
 
 def k4_cases(SC, FO, dev) -> list:
@@ -197,6 +215,68 @@ def clean_ms(fn, names: tuple, iters: int) -> float:
     return us / 1e3 / iters
 
 
+def union_us(spans: list) -> float:
+    """Length of the union of [start, end) spans: launches that overlap
+    on the device (a programmatic dependent launch starts before the one
+    it depends on ends) count once, and gaps between them not at all."""
+    total, cur = 0.0, None
+    for a, b in sorted(spans):
+        if cur is None or a > cur[1]:
+            if cur is not None:
+                total += cur[1] - cur[0]
+            cur = [a, b]
+        else:
+            cur[1] = max(cur[1], b)
+    return total + (cur[1] - cur[0] if cur is not None else 0.0)
+
+
+def split_us(fn, iters: int) -> dict:
+    """Device µs a call of each kernel, memset and copy ``fn`` runs, by
+    name (a kernel's name without its arguments), and under ``span`` the
+    union of their spans (``union_us``), each call after the repository's
+    write flush of L2 (``selfcheck._flush``, a fill kernel, left out)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import selfcheck
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            selfcheck._flush()
+            fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    spans = []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA or "FillFunctor" in e.name:
+            continue
+        name = e.name.split("(")[0].replace("void ", "").strip()
+        out[name] = out.get(name, 0.0) + e.device_time_total / iters
+        spans.append((e.time_range.start, e.time_range.end))
+    out["span"] = union_us(spans) / iters
+    return out
+
+
+def exchange_yardstick_ms(SC, dev, iters: int) -> float:
+    """Device ms of one ``transpose(0, 1).contiguous()`` a plane over the
+    exchange case's planes (the same seed as ``rung_cases``), summed, L2
+    write-flushed before each call: a yardstick only, since the packed
+    exchange moves every plane in one launch."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(36)
+    planes = []
+    for _ in range(2):
+        planes.append(torch.from_numpy(rng.integers(
+            0, 1 << 40, (4, 4, 1 << 14), dtype=np.int64)).to(dev))
+        planes.append(torch.from_numpy(
+            rng.random((4, 4, 1 << 14)) < 0.7).to(dev))
+    return SC._time_ms(lambda: [t.transpose(0, 1).contiguous()
+                                for t in planes], iters)["ms"]
+
+
 def one(src: str, run: int, iters: int, kernels: list) -> int:
     sys.path.insert(0, src)
     import torch
@@ -226,13 +306,20 @@ def one(src: str, run: int, iters: int, kernels: list) -> int:
         cases += k1_cases(selfcheck, dev)
     if "bitset_intersect_counts" in kernels:
         cases += a7_cases(selfcheck, fuzzy_ops, dev)
+    rung = {RUNG[k]: k for k in kernels if k in RUNG}
+    if rung:
+        cases += [c for c in selfcheck.rung_cases(dev)
+                  if c["kernel"] in rung]
     for case in cases:
-        if case["kernel"] not in kernels:
+        opt = rung.get(case["kernel"], case["kernel"])
+        if opt not in kernels:
             continue
         r = selfcheck.run_case(case, iters=iters)
         r.update(tree=src, run=run,
-                 ms_clean=clean_ms(case["run"], KERNELS[case["kernel"]],
-                                   iters))
+                 ms_clean=clean_ms(case["run"], KERNELS[opt], iters))
+        r["split"] = split_us(case["run"], iters)
+        if opt == "spmd_exchange":
+            r["yardstick_ms"] = exchange_yardstick_ms(selfcheck, dev, iters)
         print(json.dumps(r), flush=True)
         if not r["ok"]:
             return 1

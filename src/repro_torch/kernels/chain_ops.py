@@ -24,7 +24,8 @@ Operands (``R`` rows):
 It returns ``raw`` int64 [R, 3 + 4 M] — n_cand, n_found, n_valid, then a
 column's valid survivors, sum, min and max, float64 slots as raw bits —
 and the survivor mask [R, live_p2], both on the host.  A CUDA ``idx``
-launches the kernel (two passes, see the source) or raises; a CPU one
+launches the kernels (a scatter and a gather / reduce launch, see the
+source) or raises; a CPU one
 runs :func:`chain_plain`, the reference's math in PyTorch, whose float64
 sums fold in ``columnar_ops.tree_sum``'s order, as the kernel's do.
 """
@@ -32,7 +33,7 @@ sums fold in ``columnar_ops.tree_sum``'s order, as the kernel's do.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -147,14 +148,40 @@ def unpack(host: np.ndarray, rows: int, w: int, n: int
     return raw, host[rows * w * 8:].view(np.bool_).reshape(rows, n)
 
 
+_MAX_STAMP = 255
+# per (device, stream): the flag buffer A6's dispatches stamp (uint8,
+# grown to the largest [R, fields, total_p2] seen) and the last stamp
+# given; every byte is 0 or an earlier stamp since the buffer was zeroed
+_FLAGS: Dict[Tuple[int, int], list] = {}
+
+
+def _flag_buffer(dev: torch.device, nbytes: int
+                 ) -> Tuple[torch.Tensor, int, int]:
+    """(buffer, stamp, clear_bytes) for one dispatch: the next stamp in 1
+    .. 255, and the bytes to zero first (the whole buffer when it is new
+    or the stamp wraps, else 0)."""
+    key = (dev.index if dev.index is not None else
+           torch.cuda.current_device(),
+           torch.cuda.current_stream(dev).cuda_stream)
+    got = _FLAGS.get(key)
+    if got is None or got[0].numel() < nbytes:
+        got = _FLAGS[key] = [torch.empty(nbytes, dtype=torch.uint8,
+                                         device=dev), _MAX_STAMP]
+    stamp = got[1] % _MAX_STAMP + 1
+    got[1] = stamp
+    return got[0], stamp, got[0].numel() if stamp == 1 else 0
+
+
 def chain_cuda(tiers: Sequence[Sequence[torch.Tensor]], abo: np.ndarray,
                idx: torch.Tensor, n_live: np.ndarray, preds: Sequence,
                aggs: Sequence, total_p2: int, live_p2: int) -> torch.Tensor:
-    """A6 on the card: a memset and the scatter pass, then the gather /
-    compare / reduce pass (one launch per 8 aggregate columns).  The
-    per-row scalars go up in one copy.  Returns the packed result on the
-    card (:func:`unpack`'s layout: counts and column scalars, then the
-    mask), which comes back in one copy."""
+    """A6 on the card, one C call: the scatter launch, then the gather /
+    compare / reduce launch (one per 8 aggregate columns), and a memset of
+    the pooled flags first when they are new or their stamp wraps
+    (counted in ``chain_cuda.clears``).  The per-row scalars go up in one
+    copy.  Returns the packed result on the card (:func:`unpack`'s layout:
+    counts and column scalars, then the mask), which comes back in one
+    copy."""
     dev = idx.device
     rows, nf, m = int(idx.shape[0]), len(tiers), len(aggs)
     if len(preds) > CO._MAX_COLS:
@@ -192,16 +219,7 @@ def chain_cuda(tiers: Sequence[Sequence[torch.Tensor]], abo: np.ndarray,
         *[int(t.dtype == torch.int32) for t in flat])
     lens = (np.clip(abo[:, :, 1], 0, None) - np.clip(abo[:, :, 0], 0, None))
     max_len = int(lens.max()) if lens.size else 0
-    flags = torch.empty(rows * nf * total_p2, dtype=torch.uint8, device=dev)
-    stream = _ops.stream(idx)
-    f1 = CO._fn("rt_chain_scatter",
-                [CO._P, CO._P, CO._P, CO._P, CO._I, CO._P, CO._I, CO._P,
-                 CO._I, CO._L, CO._L, CO._P])
-    rc = f1(ctypes.cast(pos_arr, CO._P), ctypes.cast(width, CO._P),
-            ctypes.cast(field, CO._P), ctypes.cast(is32, CO._P), nt, abo_p,
-            rows, flags.data_ptr(), nf, total_p2, max_len, stream)
-    chain_cuda.launches += 1
-    _ops.check(rc, "fused_index_chain (scatter)")
+    flags, stamp, clear = _flag_buffer(dev, rows * nf * total_p2)
     pcols = [(d, v, None, None) for d, v, _lo, _hi in preds]
     acols = [(d, v, None, None) for d, v in aggs]
     pd, ad = CO._descs(pcols), CO._descs(acols)
@@ -215,20 +233,27 @@ def chain_cuda(tiers: Sequence[Sequence[torch.Tensor]], abo: np.ndarray,
                       device=dev)
     out = res[:rows * w * 8].view(torch.int64)
     mask = res[rows * w * 8:]
-    f2 = CO._fn("rt_chain_aggregate",
-                [CO._P, CO._I, CO._P, CO._I, CO._L, CO._I, CO._I, CO._I,
-                 CO._P, CO._P, CO._P, CO._P, CO._L, CO._P, CO._P, CO._I,
-                 CO._L, CO._P, CO._P, CO._P, CO._P])
-    rc = f2(ctypes.cast(pd, CO._P), len(pcols), ctypes.cast(ad, CO._P), m,
-            live_p2, rows, CO.agg_blocks(live_p2), int(vec), part.data_ptr(),
-            ticket.data_ptr(), out.data_ptr(), nodes.data_ptr(), stride,
-            bounds_p if nb else None, flags.data_ptr(), nf, total_p2,
-            idx.data_ptr(), nlive_p, mask.data_ptr(), stream)
+    f = CO._fn("rt_chain",
+               [CO._P, CO._P, CO._P, CO._P, CO._I, CO._P, CO._L, CO._P,
+                CO._L, CO._I, CO._I, CO._L, CO._P, CO._I, CO._P, CO._I,
+                CO._L, CO._I, CO._I, CO._I, CO._P, CO._P, CO._P, CO._P,
+                CO._P, CO._P, CO._L, CO._P, CO._P, CO._P])
+    rc = f(ctypes.cast(pos_arr, CO._P), ctypes.cast(width, CO._P),
+           ctypes.cast(field, CO._P), ctypes.cast(is32, CO._P), nt, abo_p,
+           max_len, flags.data_ptr(), clear, stamp, nf, total_p2,
+           ctypes.cast(pd, CO._P), len(pcols), ctypes.cast(ad, CO._P), m,
+           live_p2, rows, CO.agg_blocks(live_p2), int(vec),
+           bounds_p if nb else None, idx.data_ptr(), nlive_p,
+           part.data_ptr(), ticket.data_ptr(), nodes.data_ptr(), stride,
+           out.data_ptr(), mask.data_ptr(), _ops.stream(idx))
+    chain_cuda.launches += 1
+    chain_cuda.clears += int(clear > 0)
     _ops.check(rc, "fused_index_chain")
     return res
 
 
-chain_cuda.launches = 0
+chain_cuda.launches = 0     # dispatches (each one rt_chain call)
+chain_cuda.clears = 0       # of them, those that zeroed the flags first
 
 
 def fused_chain(tiers: Sequence[Sequence[torch.Tensor]], abo: np.ndarray,

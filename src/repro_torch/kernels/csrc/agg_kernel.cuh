@@ -196,23 +196,25 @@ __device__ __forceinline__ void tree_step(const Run& r, uint32_t sel,
 // from bounds, and has its own partials, ticket, node array and out row;
 // without, the launch is the loop path's one row with the descriptors'
 // bounds.  With nf > 0 (A6) a row's lane i is a candidate where it is
-// live (i < n_live[r]) and the slot idx[r, i] is flagged in field 0's
-// occurrence flags; it is found where every field's flag is set, and the
-// predicates AND in after that.
+// live (i < n_live[r]) and field 0's occurrence flag at the slot idx[r,
+// i] holds this dispatch's stamp; it is found where every field's does,
+// and the predicates AND in after that.
 struct RowArgs {
   const int64_t* bounds;   // [R, k, 2] bound bits (ROWS)
   uint8_t* mask;           // [R, n] survivors out, or null
-  const uint8_t* flags;    // [R, nf, total] occurrence flags (A6)
+  const uint8_t* flags;    // [R, nf, total] occurrence stamps (A6)
   const int64_t* idx;      // [R, n] live-selection slots (A6)
   const int64_t* n_live;   // [R] (A6)
   int64_t total;           // slots a field (A6)
   int nf;                  // range fields (0: K2)
+  int stamp;               // the dispatch's flag stamp, 1 .. 255 (A6)
   int rows_vec;            // rows past the first keep vector alignment
 };
 
 // A6: a run's candidate and found bits from the lane's rows (live below
-// n_live, each row's slot gathered from every field's flags; a slot
-// outside [0, total) clamps, as an XLA gather does)
+// n_live, each row's slot gathered from every field's flags, set where
+// they hold the stamp; a slot outside [0, total) clamps, as an XLA gather
+// does)
 __device__ __forceinline__ void chain_bits(const RowArgs& ra, int64_t r,
                                            int64_t lrow0, int64_t n,
                                            int64_t n_live, bool fast,
@@ -247,7 +249,7 @@ __device__ __forceinline__ void chain_bits(const RowArgs& ra, int64_t r,
     uint32_t bits = 0;
 #pragma unroll
     for (int b = 0; b < RUN; ++b)
-      bits |= static_cast<uint32_t>(fl[slot[b]] != 0) << b;
+      bits |= static_cast<uint32_t>(fl[slot[b]] == ra.stamp) << b;
     acc &= bits;
     if (f == 0) cand = acc;
   }

@@ -12,8 +12,9 @@ kernels' float32 results within ``MODEL_RTOL`` (bfloat16 outputs within
 
 Two times are taken per call, with the L2 cache flushed before each call
 (the main path meets its operands cold): ``ms``, the device time of the
-kernels the call runs (CUDA kernel, memset and copy durations from
-``torch.profiler``, less the flush's own), and ``call_ms``, CUDA events
+kernels the call runs (the union of the CUDA kernel, memset and copy
+spans ``torch.profiler`` records, less the flush's own, so launches that
+overlap count once), and ``call_ms``, CUDA events
 around the Python call, which adds the host's launch overhead.  Where the
 profiler records no device time at all, ``ms`` is the CUDA-event time and
 the case's ``ms_timer`` reads ``cuda_events``.  The bound
@@ -55,7 +56,7 @@ __all__ = ["KERNELS", "SUM_RTOL", "MODEL_RTOL", "BF16_RTOL",
            "k8_case", "k9_case", "main_path_cases", "serve_cases",
            "a6_case", "k1_rows_case", "k2_rows_case", "exchange_case",
            "merge_case", "rung_cases", "raw_compare",
-           "run_case", "device_ms", "profiler_works"]
+           "run_case", "device_ms", "profiler_works", "union_us"]
 
 # H100 SXM (NVIDIA data sheet): HBM3 bandwidth and the FP32 rate outside
 # the tensor cores, the rate used for the kernels' scalar integer
@@ -141,10 +142,12 @@ KERNELS = {
 }
 
 
-# launch counters kept beside ``launches`` where a kernel's launches split
-# by case: K4's at T = 1 and by its sorted row-tile kernel (the rest are
-# T > 1 by the scatter kernel)
-SPLIT_COUNTERS = {"t_occurrence_mask": ("launches_t1", "launches_sorted")}
+# counters kept beside ``launches``: K4's launches at T = 1 and by its
+# sorted row-tile kernel (the rest are T > 1 by the scatter kernel), and
+# A6's dispatches that zeroed its pooled flags first (a memset before the
+# scatter and the second pass)
+SPLIT_COUNTERS = {"t_occurrence_mask": ("launches_t1", "launches_sorted"),
+                  "fused_index_chain": ("clears",)}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -1132,15 +1135,29 @@ _PROFILER: List[Optional[bool]] = [None]
 _FLUSH_RANGE = "selfcheck.flush"
 
 
+def union_us(spans: List[Tuple[float, float]]) -> float:
+    """Length of the union of [start, end) spans (µs): work that overlaps
+    on the device (a programmatic dependent launch starts before the
+    launch it depends on ends) counts once."""
+    total, cur = 0.0, None
+    for a, b in sorted(spans):
+        if cur is None or a > cur[1]:
+            if cur is not None:
+                total += cur[1] - cur[0]
+            cur = [a, b]
+        else:
+            cur[1] = max(cur[1], b)
+    return total + (cur[1] - cur[0] if cur is not None else 0.0)
+
+
 def _profiled_us(fn: Callable[[], Any], iters: int, flush: bool = False
                  ) -> Tuple[float, float]:
     """Device µs of the kernels, memsets and copies ``fn`` runs over
-    ``iters`` calls, recorded by ``torch.profiler`` (CUPTI), and of the
-    L2 flushes made before each call when ``flush``.  Each flush runs in
-    a named range, which the profiler also records on the device's
-    timeline: those spans are the flushes' time and come off the total of
-    the same run.  (Summing the device time it links to the range's CPU
-    side counts the first flush twice.)"""
+    ``iters`` calls (the union of their spans on the device's timeline),
+    recorded by ``torch.profiler`` (CUPTI), and of the L2 flushes made
+    before each call when ``flush``.  Each flush runs in a named range,
+    which the profiler also records on the device's timeline: the work
+    inside those spans is the flushes' own and is left out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
     activities = [ProfilerActivity.CUDA]
@@ -1154,14 +1171,14 @@ def _profiled_us(fn: Callable[[], Any], iters: int, flush: bool = False
                     _flush()
             fn()
         torch.cuda.synchronize()
-    device = flushes = 0.0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            if e.name == _FLUSH_RANGE:
-                flushes += e.device_time_total
-            else:
-                device += e.device_time_total
-    return device - flushes, flushes
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    fl = [(e.time_range.start, e.time_range.end) for e in dev
+          if e.name == _FLUSH_RANGE]
+    work = [(e.time_range.start, e.time_range.end) for e in dev
+            if e.name != _FLUSH_RANGE and not any(
+                a <= e.time_range.start and e.time_range.end <= b
+                for a, b in fl)]
+    return union_us(work), sum(b - a for a, b in fl)
 
 
 def profiler_works() -> bool:

@@ -108,3 +108,162 @@ def canon(rows):
     """Rows in a canonical order, each by its exact repr."""
     return sorted(repr(sorted(r.items(), key=lambda kv: kv[0]))
                   for r in rows)
+
+
+# ---------------------------------------------------------------------------
+# random dataset lifecycles and relational plans, as the reference's
+# tests/test_differential.py builds them (_build with index kinds a and b,
+# _relational_plan), for any package with the reference's layout
+# ---------------------------------------------------------------------------
+
+VOCAB = ["tpu", "jax", "lsm", "tonight", "tonite", "coffee", "fuzzy",
+         "mesh", "verona"]
+
+
+def lifecycle_type(adm):
+    return adm.RecordType("DiffT", (
+        adm.Field("id", adm.INT64),
+        adm.Field("g", adm.INT64),
+        adm.Field("a", adm.INT64, optional=True),
+        adm.Field("b", adm.INT64, optional=True),
+        adm.Field("txt", adm.STRING, optional=True),
+        adm.Field("loc", adm.POINT, optional=True),
+    ), open=True)
+
+
+def lifecycle_dataset(pkg, rng, n_rows, parts, threshold):
+    """A random lifecycle (``random.Random`` draws in the reference's
+    order): B+-tree indexes on a and b created before or after the
+    inserts (backfill), inserts with optional and open fields of drifting
+    kind, interleaved deletes, more deletes, and a crash recovery with
+    probability 0.3; memtables left unflushed."""
+    ds = pkg.dsm.PartitionedDataset(
+        "D", lifecycle_type(pkg.adm), "id", num_partitions=parts,
+        flush_threshold=threshold,
+        merge_policy=pkg.lsm.TieredMergePolicy(k=rng.choice([2, 3, 4])))
+    late = set()
+    if rng.random() < 0.5:
+        ds.create_index("a")
+    else:
+        late.add("a")
+    if rng.random() < 0.5:
+        ds.create_index("b", kind="btree")
+    else:
+        late.add("b")
+    key_space = max(2 * n_rows, 4)
+    for _ in range(n_rows):
+        r = {"id": rng.randrange(key_space), "g": rng.randrange(4)}
+        if rng.random() < 0.9:
+            r["a"] = rng.randrange(-50, 50)
+        if rng.random() < 0.7:
+            r["b"] = rng.randrange(0, 30)
+        if rng.random() < 0.8:
+            r["txt"] = " ".join(rng.choice(VOCAB)
+                                for _ in range(rng.randrange(1, 5)))
+        if rng.random() < 0.7:
+            r["loc"] = (rng.uniform(0.0, 1.0), rng.uniform(0.0, 1.0))
+        if rng.random() < 0.5:
+            r["x"] = rng.choice([rng.randrange(100), rng.uniform(0.0, 9.0),
+                                 rng.choice(VOCAB)])
+        if rng.random() < 0.3:
+            r["flag"] = rng.random() < 0.5
+        ds.insert(r)
+        if rng.random() < 0.1:
+            ds.delete(rng.randrange(key_space))
+    for fld in ("a", "b"):
+        if fld in late:
+            ds.create_index(fld)
+    for _ in range(rng.randrange(n_rows // 4 + 1)):
+        ds.delete(rng.randrange(key_space))
+    if rng.random() < 0.3:
+        ds.crash_and_recover()
+    return ds
+
+
+def _range_pred(fld, lo, hi):
+    return lambda r: fld in r \
+        and (lo is None or r[fld] >= lo) and (hi is None or r[fld] <= hi)
+
+
+def _btree_select(A, rng):
+    lo = rng.randrange(-60, 50)
+    hi = lo + rng.randrange(0, 60)
+    lo_, hi_ = lo, hi
+    if rng.random() < 0.15:
+        lo_ = None
+    elif rng.random() < 0.15:
+        hi_ = None
+    hints = ["skip-index"] if rng.random() < 0.25 else []
+    return A.select(A.scan("D"), pred=_range_pred("a", lo_, hi_),
+                    fields=["a"], ranges={"a": (lo_, hi_)},
+                    ranges_exact=rng.random() < 0.5, hints=hints)
+
+
+def _multi_select(A, rng):
+    lo_a = rng.randrange(-60, 40)
+    hi_a = lo_a + rng.randrange(5, 70)
+    lo_b = rng.randrange(0, 20)
+    hi_b = lo_b + rng.randrange(0, 15)
+    pa, pb = _range_pred("a", lo_a, hi_a), _range_pred("b", lo_b, hi_b)
+    return A.select(A.scan("D"),
+                    pred=lambda r: pa(r) and pb(r), fields=["a", "b"],
+                    ranges={"a": (lo_a, hi_a), "b": (lo_b, hi_b)},
+                    ranges_exact=rng.random() < 0.5)
+
+
+def relational_plan(A, rng, kind):
+    """The reference's _relational_plan over the algebra module ``A``."""
+    if kind == "btree":
+        return _btree_select(A, rng)
+    if kind == "multi":
+        return _multi_select(A, rng)
+    if kind == "agg":
+        return A.aggregate(_btree_select(A, rng),
+                           {"c": ("count", "*"), "s": ("sum", "a"),
+                            "mn": ("min", "b"), "av": ("avg", "b")})
+    if kind == "group":
+        return A.group_by(_btree_select(A, rng), ["g"],
+                          {"c": ("count", "*"), "mx": ("max", "a")})
+    if kind == "topk":
+        return A.limit(A.order_by(_btree_select(A, rng), ["id"],
+                                  desc=rng.random() < 0.5),
+                       rng.randrange(1, 9))
+    if kind == "project":
+        return A.project(_btree_select(A, rng), ["id", "g", "a"])
+    raise AssertionError(kind)
+
+
+def mesh_lifecycles(pkg, seed, check, n_cases=12):
+    """The schedule of the reference's
+    test_differential_mesh_lifecycle_schedules, calling ``check(ds,
+    plan)`` where it queries: random lifecycles, each with a random plan
+    kind, then one dataset whose flushes, a delete and a crash recovery
+    interleave with aggregate queries.  Returns that last dataset."""
+    import random
+    rng = random.Random(seed)
+    for _ in range(n_cases):
+        ds = lifecycle_dataset(pkg, rng, rng.randrange(0, 90),
+                               rng.choice([2, 3, 4]),
+                               rng.choice([4, 9, 17, 33]))
+        kind = rng.choice(["btree", "multi", "agg", "group", "topk",
+                           "project"])
+        check(ds, relational_plan(pkg.A, rng, kind))
+    ds = pkg.dsm.PartitionedDataset(
+        "D", lifecycle_type(pkg.adm), "id", num_partitions=4,
+        flush_threshold=9, merge_policy=pkg.lsm.TieredMergePolicy(k=2))
+    ds.create_index("a")
+    for step in range(6):
+        for _ in range(18):
+            r = {"id": rng.randrange(200), "g": rng.randrange(4)}
+            if rng.random() < 0.9:
+                r["a"] = rng.randrange(-50, 50)
+            ds.insert(r)
+        if step == 2:
+            for part in ds.partitions:
+                part.primary.flush()
+        if step == 3:
+            ds.delete(rng.randrange(200))
+        if step == 4:
+            ds.crash_and_recover()
+        check(ds, relational_plan(pkg.A, rng, "agg"))
+    return ds

@@ -946,3 +946,196 @@ def test_rungs_on_card_equal_cpu(dev):
     for k in ("fused_index_chain", "range_mask_stacked",
               "filter_aggregate_stacked", "spmd_exchange"):
         assert counts[k] > 0, k
+
+
+# ---------------------------------------------------------------------------
+# the row axis (agg_kernel's grid rows, A6's one-wave mask kernel) and
+# A6's stamped flags: rows that do not divide the wave, lengths off the
+# 2,048-row chunk, signed zeros and NaN payloads, stamp wraps
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("rows", [3, 5, 8])
+@pytest.mark.parametrize("n", [37, 5000, 3 * 2048, 70_001, 1 << 19])
+@pytest.mark.parametrize("preds,aggs", [
+    (["ts"], ["id", "f64n"]), (["f64", "code"], ["code", "nan", "ts"])])
+def test_rows_walk_stacked_filter_aggregate(dev, rows, n, preds, aggs):
+    """Stacked K2 over 3, 5 and 8 rows, n on and off the 2,048-row chunk
+    and off 16 (rows past the first lose vector alignment): equal to its
+    plain version, and each row bit for bit the loop kernel's row."""
+    import numpy as np
+    from repro_torch.kernels import columnar_ops as CO
+    from repro_torch.kernels import spmd_ops as SO
+    case = SC.k2_rows_case(rows, n, preds, aggs, seed=n + 7 * rows, dev=dev)
+    r = SC.run_case(case, timed=False)
+    assert r["ok"], r
+    raw, _mask = SO.filter_aggregate_rows(case["pcols"], case["acols"],
+                                          rows, n)
+    for i in range(rows):
+        pcols = [(x[i], v[i], lo[i], hi[i])
+                 for x, v, lo, hi in case["pcols"]]
+        acols = [(x[i], v[i], None, None) for x, v in case["acols"]]
+        loop = CO.filter_aggregate_cuda(pcols, acols, n, dev).cpu().numpy()
+        assert np.array_equal(loop, raw[i]), i
+
+
+def _one_row(args, r):
+    tiers, abo, idx, n_live, preds, aggs, total_p2, live_p2 = args
+    return ([[t[r:r + 1] for t in fp] for fp in tiers], abo[r:r + 1],
+            idx[r:r + 1], n_live[r:r + 1],
+            [(d[r:r + 1], v[r:r + 1], lo[r:r + 1], hi[r:r + 1])
+             for d, v, lo, hi in preds],
+            [(d[r:r + 1], v[r:r + 1]) for d, v in aggs], total_p2, live_p2)
+
+
+@pytest.mark.parametrize("rows", [3, 5, 8])
+@pytest.mark.parametrize("n_live", [1000, 5000, 70_001, 500_000])
+@pytest.mark.parametrize("preds,aggs", [([], []), (["ts"], []),
+                                        (["id"], ["id", "f64n"])])
+def test_rows_walk_fused_chain(dev, rows, n_live, preds, aggs):
+    """A6 over 3, 5 and 8 rows, the last a padding row (n_live 0), in
+    mask mode (atomic counts, no fold) and aggregate mode: equal to its
+    plain version, the padding row all zero, and each row bit for bit the
+    same row dispatched alone.  At n_live 500,000 (256 logical blocks a
+    row) a mask-mode block's logical blocks cross a row's end at 5
+    rows."""
+    import numpy as np
+    from repro_torch.kernels import chain_ops as CH
+    case = SC.a6_case(rows, n_live, 3, 2, preds, aggs,
+                      seed=n_live + 11 * rows, dev=dev, empty_last=True)
+    r = SC.run_case(case, timed=False)
+    assert r["ok"], r
+    raw, mask = CH.fused_chain(*case["args"])
+    assert (raw[-1, :3] == 0).all() and not mask[-1].any()
+    for i in range(rows):
+        raw1, mask1 = CH.fused_chain(*_one_row(case["args"], i))
+        assert np.array_equal(raw1[0], raw[i]), i
+        assert np.array_equal(mask1[0], mask[i]), i
+
+
+def _zero_nan_cols(rows, n, seed, dev):
+    """Two float64 aggregate columns [rows, n] whose mins and maxes turn on
+    the fold order: one of +0.0, -0.0 and 3.0 only (a zero is the min, its
+    sign the first met), one with NaNs of three payloads (the first met
+    wins), each 90% valid."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    zeros = rng.choice(np.array([0.0, -0.0, 3.0]), (rows, n))
+    nans = rng.normal(0.0, 1.0, (rows, n))
+    hit = rng.random((rows, n)) < 0.002
+    payloads = np.array([0x7ff8000000000001, 0x7ff8000000000002,
+                         0xfff8000000000003], dtype=np.uint64)
+    nans.view(np.uint64)[hit] = rng.choice(payloads, int(hit.sum()))
+    return [(torch.from_numpy(x).to(dev),
+             torch.from_numpy(rng.random((rows, n)) < 0.9).to(dev))
+            for x in (zeros, nans)]
+
+
+@pytest.mark.parametrize("rows", [3, 8])
+@pytest.mark.parametrize("n", [5000, 1 << 19])
+def test_stacked_min_max_signed_zeros_nan_payloads(dev, rows, n):
+    """Stacked K2's min / max over columns of +0.0 / -0.0 and of NaNs with
+    different payloads: each row's raw slots bit for bit the loop
+    kernel's on that row."""
+    import numpy as np
+    from repro_torch.kernels import columnar_ops as CO
+    from repro_torch.kernels import spmd_ops as SO
+    rng = np.random.default_rng(n + rows)
+    ids = torch.from_numpy(rng.integers(0, 1000, (rows, n))).to(dev)
+    ok = torch.ones((rows, n), dtype=torch.bool, device=dev)
+    pcols = [(ids, ok, np.full(rows, 100, np.int64),
+              np.full(rows, 900, np.int64))]
+    acols = _zero_nan_cols(rows, n, n + rows, dev)
+    raw, _mask = SO.filter_aggregate_rows(pcols, acols, rows, n)
+    for i in range(rows):
+        loop = CO.filter_aggregate_cuda(
+            [(ids[i], ok[i], np.int64(100), np.int64(900))],
+            [(x[i], v[i], None, None) for x, v in acols], n,
+            dev).cpu().numpy()
+        assert np.array_equal(loop, raw[i]), i
+
+
+@pytest.mark.parametrize("rows", [3, 8])
+def test_fused_chain_min_max_signed_zeros_nan_payloads(dev, rows):
+    """A6's min / max over +0.0 / -0.0 and NaN payloads: each stacked row's
+    raw slots bit for bit the same row dispatched alone."""
+    import numpy as np
+    from repro_torch.kernels import chain_ops as CH
+    a = SC.a6_arrays(rows, 70_001, 3, 1, [], ["f64n", "f64n"], seed=rows,
+                     dev=dev)
+    aggs = _zero_nan_cols(rows, a["live_p2"], rows, dev)
+    args = (a["tiers"], a["abo"], a["idx"], a["n_live"], a["preds"], aggs,
+            a["total_p2"], a["live_p2"])
+    raw, mask = CH.fused_chain(*args)
+    for i in range(rows):
+        raw1, mask1 = CH.fused_chain(*_one_row(args, i))
+        assert np.array_equal(raw1[0], raw[i]), i
+        assert np.array_equal(mask1[0], mask[i]), i
+
+
+def test_fused_chain_stamps_wrap(dev):
+    """300 A6 dispatches on one stream, alternating two inputs whose
+    probes flag different slots, through more than 255 stamps of one
+    pooled flag buffer: each equals its plain version (a slot an earlier
+    dispatch flagged never reads as set), and a stamp wrap zeroes the
+    buffer (``chain_cuda.clears``)."""
+    import numpy as np
+    from repro_torch.kernels import chain_ops as CH
+    cases = [SC.a6_case(2, 3000, 2, 2, ["ts"], ["id", "f64n"], seed=s,
+                        dev=dev) for s in (1, 2)]
+    want = [CH.chain_plain(*c["args"]) for c in cases]
+    clears0 = CH.chain_cuda.clears
+    got = [CH.chain_cuda(*cases[i % 2]["args"]) for i in range(300)]
+    assert CH.chain_cuda.clears - clears0 >= 1
+    w = CH.N_COUNTS + 8
+    for i, res in enumerate(got):
+        raw, mask = CH.unpack(res.cpu().numpy(), 2, w,
+                              cases[0]["args"][-1])
+        wraw, wmask = want[i % 2]
+        assert np.array_equal(mask, wmask), i
+        assert SC.raw_compare((raw, mask), (wraw, wmask),
+                              [CH.N_COUNTS + 5, CH.N_COUNTS + 6,
+                               CH.N_COUNTS + 7]) == 0, i
+
+
+def test_fused_chain_back_to_back_shapes(dev):
+    """A6 dispatches of different shapes (rows, fields, storage sizes,
+    mask and aggregate mode) queued back to back on one stream before one
+    synchronize, each equal to its plain version."""
+    from repro_torch.kernels import chain_ops as CH
+    cases = [SC.a6_case(*shape, seed=i, dev=dev)
+             for i, shape in enumerate([
+                 (4, 5000, 3, 2, ["ts"], ["id", "f64n"]),
+                 (1, 70_001, 2, 1, [], []),
+                 (3, 1000, 1, 3, [], ["f64n"]),
+                 (2, 20_000, 4, 1, ["id"], [])])]
+    got = [c["run"]() for c in cases]
+    torch.cuda.synchronize()
+    for c, res in zip(cases, got):
+        assert c["compare"](res, c["plain"]()) == 0, c["label"]
+
+
+@pytest.mark.parametrize("devs", [2, 4])
+def test_mesh_lifecycle_schedules_on_card(dev, devs):
+    """The reference's mesh lifecycle schedules
+    (tests/test_differential.py: test_differential_mesh_lifecycle_schedules)
+    on the card at 2 and 4 lanes: rows and fallback reasons equal the
+    card's loop and the same runs on the CPU (which
+    tests/test_torch_spmd.py holds against the reference)."""
+    from _torch_ref import canon, mesh_lifecycles, port_namespace
+    port = port_namespace()
+    got = {}
+    for name in ("cuda", "cpu"):
+        repro_torch.set_device(name)
+        res = []
+
+        def check(ds, plan):
+            rows_l, ex_l = port.run_query(plan, {"D": ds}, vectorize=True)
+            rows_m, ex_m = port.run_query(plan, {"D": ds}, vectorize=True,
+                                          mesh=devs)
+            assert canon(rows_m) == canon(rows_l)
+            assert ex_m.stats.fallback_reasons == ex_l.stats.fallback_reasons
+            res.append((canon(rows_m), ex_m.stats.fallback_reasons))
+        mesh_lifecycles(port, 20260807 * devs + 11, check)
+        got[name] = res
+    repro_torch.set_device("cuda")
+    assert got["cuda"] == got["cpu"]

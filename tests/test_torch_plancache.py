@@ -324,13 +324,11 @@ CHAIN_CASES = {
 }
 
 
-@pytest.mark.parametrize("rows", [1, 4])
-@pytest.mark.parametrize("case", list(CHAIN_CASES))
-def test_chain_plain_equals_reference_chain_math(REF, case, rows):
-    """Row r of a stacked call equals ``_chain_math`` on row r's own
-    operands: rows zero-padded into common tier widths and a common
-    ``live_p2``, a row with a missing tier, and (at R = 4) an empty padding
-    row with ``n_live = 0``."""
+def _stacked_chain(case, rows):
+    """CHAIN_CASES[case] stacked over ``rows`` rows: (per-row numpy
+    operands, then A6's stacked arguments).  Rows are zero-padded into
+    common tier widths and a common live_p2, row 1 misses a tier, and (R
+    > 1) the last row is an empty padding row with n_live = 0."""
     c = CHAIN_CASES[case]
     rng = np.random.default_rng(hash(case) % 2**32 + rows)
     total_p2, live_p2 = 256, 2048
@@ -367,6 +365,20 @@ def test_chain_plain_equals_reference_chain_math(REF, case, rows):
     aggs = [(torch.from_numpy(np.stack([pr[4][j][0] for pr in per_row])),
              torch.from_numpy(np.stack([pr[4][j][1] for pr in per_row])))
             for j in range(len(c["aggs"]))]
+    return per_row, (tiers, abo, idx, n_live, preds, aggs, total_p2,
+                     live_p2)
+
+
+@pytest.mark.parametrize("rows", [1, 4])
+@pytest.mark.parametrize("case", list(CHAIN_CASES))
+def test_chain_plain_equals_reference_chain_math(REF, case, rows):
+    """Row r of a stacked call equals ``_chain_math`` on row r's own
+    operands: rows zero-padded into common tier widths and a common
+    ``live_p2``, a row with a missing tier, and (at R = 4) an empty padding
+    row with ``n_live = 0``."""
+    c = CHAIN_CASES[case]
+    per_row, args = _stacked_chain(case, rows)
+    tiers, abo, idx, n_live, preds, aggs, total_p2, live_p2 = args
     raw, mask = CH.chain_plain(tiers, abo, idx, n_live, preds, aggs,
                                total_p2, live_p2)
     counts, per_col = CH.split_raw(raw, [k == "f64" for k in c["aggs"]],
@@ -390,3 +402,87 @@ def test_chain_plain_equals_reference_chain_math(REF, case, rows):
     assert counts[0][-1] >= 0
     if rows > 1:                  # the padding row selects nothing
         assert counts[0][-1] == 0 and not mask[-1].any()
+
+
+# ---------------------------------------------------------------------------
+# A6 on the card, transcribed: stamped flags in a pooled buffer and the
+# row axis's fold order (tests/_torch_walk.py)
+# ---------------------------------------------------------------------------
+
+def _walk_chain(pool, args):
+    """A6's raw and mask as the kernels compute them: the scatter's stamps
+    in ``pool``, the gather, the predicates, then each row's slots folded
+    in the row kernel's order."""
+    from _torch_walk import chain_masks, rows_raw
+    tiers, abo, idx, n_live, preds, aggs, total_p2, live_p2 = args
+    rows = int(idx.shape[0])
+    fl, stamp = pool.dispatch(rows, len(tiers), total_p2,
+                              [[t.numpy() for t in fp] for fp in tiers],
+                              abo)
+    cand, found = chain_masks(fl, stamp, idx.numpy(), n_live, total_p2)
+    mask = found.copy()
+    for x, v, lo, hi in preds:
+        x = x.numpy()
+        mask &= v.numpy() & (x >= np.asarray(lo)[:, None]) \
+            & (x <= np.asarray(hi)[:, None])
+    counts = [(int(cand[r].sum()), int(found[r].sum()), int(mask[r].sum()))
+              for r in range(rows)]
+    return rows_raw(mask, [(x.numpy(), v.numpy()) for x, v in aggs], rows,
+                    live_p2, counts), mask
+
+
+@pytest.mark.parametrize("rows", [1, 3, 5])
+@pytest.mark.parametrize("case", list(CHAIN_CASES))
+def test_chain_walk_transcription(REF, case, rows):
+    """The transcribed kernels (stamped flags, the row kernels' fold
+    order) equal A6's plain version bit for bit at 1, 3 and
+    5 rows, and each row equals the reference's ``_chain_math``."""
+    from _torch_walk import FlagPool
+    per_row, args = _stacked_chain(case, rows)
+    raw, mask = _walk_chain(FlagPool(), args)
+    praw, pmask = CH.chain_plain(*args)
+    assert np.array_equal(mask, pmask), case
+    assert np.array_equal(raw, praw), case
+    total_p2, live_p2 = args[6], args[7]
+    for r, pr in enumerate(per_row):
+        n_cand, n_found, n_valid, wmask, _ = _reference_chain(
+            REF, (pr[0], pr[1], pr[2], pr[5], pr[3], pr[4]), total_p2,
+            live_p2)
+        assert tuple(raw[r, :3]) == (int(n_cand), int(n_found),
+                                     int(n_valid)), (case, r)
+        assert np.array_equal(mask[r], np.asarray(wmask)), (case, r)
+
+
+def test_chain_flag_stamps_transcription():
+    """301 dispatches of varied shapes through one pooled flag buffer (the
+    first the largest, a wrap past stamp 255, then a grown buffer): each
+    dispatch's candidate and found lanes equal A6's plain version, so no
+    slot stamped by an earlier dispatch reads as set."""
+    from _torch_walk import FlagPool
+    rng = np.random.default_rng(20)
+    pool = FlagPool()
+    for i in range(301):
+        rows = 3 if i == 0 else int(rng.integers(1, 4))
+        fields = 2 if i == 0 else int(rng.integers(1, 3))
+        total_p2 = 128 if i == 300 else 64
+        live_p2 = 64
+        tiers, abo = [], np.zeros((rows, 2 * fields, 3), np.int64)
+        for f in range(fields):
+            fp = []
+            for t in range(2):
+                w = int(rng.integers(1, 40))
+                fp.append(torch.from_numpy(
+                    rng.integers(0, total_p2 // 2, (rows, w))))
+                for r in range(rows):
+                    a = int(rng.integers(0, w))
+                    abo[r, 2 * f + t] = (a, int(rng.integers(a, w + 1)),
+                                         t * total_p2 // 2)
+            tiers.append(fp)
+        idx = torch.from_numpy(rng.integers(-3, total_p2 + 3,
+                                            (rows, live_p2)))
+        n_live = rng.integers(0, live_p2 + 1, rows)
+        args = (tiers, abo, idx, n_live, [], [], total_p2, live_p2)
+        raw, mask = _walk_chain(pool, args)
+        praw, pmask = CH.chain_plain(*args)
+        assert np.array_equal(mask, pmask) and np.array_equal(raw, praw), i
+    assert pool.clears == 3           # the new buffer, a wrap, the growth

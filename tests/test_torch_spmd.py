@@ -401,3 +401,99 @@ def test_rows_for_rounds_up_to_mesh_multiple():
     m4 = SP.partition_mesh(4)
     assert SP.rows_for(3, m4) == 4 and SP.rows_for(5, m4) == 8
     assert SP.rows_for(0, m4) == 4
+
+
+# ---------------------------------------------------------------------------
+# the mesh axis of tests/test_differential.py
+# (test_differential_mesh_lifecycle_schedules), which needs 2 or 4 devices
+# in the reference: the port's lanes all live on one device
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("devs", [2, 4])
+def test_mesh_lifecycle_schedules_mirror(REF, devs):
+    """Random dataset lifecycles (flush / merge / delete / crash recovery,
+    the reference's schedule and seed for ``devs``) queried at ``devs``
+    lanes equal the port's loop and the reference's one-device loop, rows
+    by exact repr and fallback reasons; a warm mesh repeat retraces
+    nothing."""
+    import random
+    from _torch_ref import mesh_lifecycles, relational_plan
+    port_res, ref_res = [], []
+
+    def port_check(ds, plan):
+        rows_l, ex_l = PORT.run_query(plan, {"D": ds}, vectorize=True)
+        rows_m, ex_m = PORT.run_query(plan, {"D": ds}, vectorize=True,
+                                      mesh=devs)
+        assert canon(rows_m) == canon(rows_l)
+        assert ex_m.stats.fallback_reasons == ex_l.stats.fallback_reasons
+        port_res.append((canon(rows_m), ex_m.stats.fallback_reasons))
+
+    def ref_check(ds, plan):
+        rows, ex = REF.run_query(plan, {"D": ds}, vectorize=True)
+        ref_res.append((canon(rows), ex.stats.fallback_reasons))
+
+    seed = 20260807 * devs + 11
+    ds = mesh_lifecycles(PORT, seed, port_check)
+    mesh_lifecycles(REF, seed, ref_check)
+    assert port_res == ref_res
+    plan = relational_plan(PORT.A, random.Random(3), "agg")
+    PORT.run_query(plan, {"D": ds}, vectorize=True, mesh=devs)
+    _, ex = PORT.run_query(plan, {"D": ds}, vectorize=True, mesh=devs)
+    assert ex.stats.kernel_retraces == 0
+
+
+# ---------------------------------------------------------------------------
+# the row axis on the card, transcribed (tests/_torch_walk.py): A6's
+# mask-mode walk of one wave over every row's logical blocks, and stacked
+# K2's fold order
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("rows", [1, 3, 5, 8])
+@pytest.mark.parametrize("n", [37, 5000, 3 * 2048, 600_000])
+@pytest.mark.parametrize("wave", [7, 132, 264])
+def test_rows_walk_covers_every_logical_block_once(rows, n, wave):
+    """A6's mask-mode grid takes at most ``wave`` blocks, every (row,
+    logical block) exactly once, and each row's count adds cover its
+    logical blocks."""
+    from _torch_walk import agg_blocks, walk
+    nblk = agg_blocks(n)
+    blocks, tickets = walk(rows, nblk, wave)
+    assert len(blocks) <= wave
+    seen = sorted(L for _, ls in blocks for L in ls)
+    assert seen == list(range(rows * nblk))
+    for r in range(rows):
+        assert sum(c for _, row, c in tickets if row == r) == nblk
+
+
+@pytest.mark.parametrize("rows", [1, 3, 5])
+@pytest.mark.parametrize("n", [37, 5000, 2 * 2048 + 16])
+def test_rows_walk_transcription_equals_stacked_plain(rows, n):
+    """Stacked K2 transcribed (each logical block's partial in the
+    kernel's lane layout and fold order, the row fold in block order,
+    float64 sums as 1,024-row nodes) equals its plain version bit for bit:
+    int64, float64 with NaN and int32-code columns under an int64 and a
+    float64 predicate, each row with its own bounds."""
+    import torch
+    from _torch_walk import rows_raw
+    from repro_torch.kernels import spmd_ops as SO
+    rng = np.random.default_rng(n + rows)
+    ts = rng.integers(0, 10**9, (rows, n))
+    xf = rng.normal(1e3, 3e2, (rows, n))
+    xf[rng.random((rows, n)) < 0.01] = np.nan
+    code = rng.integers(0, 50, (rows, n)).astype(np.int32)
+    valid = [rng.random((rows, n)) < 0.9 for _ in range(3)]
+    lo_t = 10**8 + 10**7 * np.arange(rows)
+    hi_t = np.full(rows, 8 * 10**8)
+    lo_f, hi_f = np.full(rows, 700.0), 1200.0 + 50.0 * np.arange(rows)
+    pcols = [(torch.from_numpy(ts), torch.from_numpy(valid[0]), lo_t, hi_t),
+             (torch.from_numpy(xf), torch.from_numpy(valid[1]), lo_f, hi_f)]
+    acols = [(torch.from_numpy(ts), torch.from_numpy(valid[2])),
+             (torch.from_numpy(xf), torch.from_numpy(valid[1])),
+             (torch.from_numpy(code), torch.from_numpy(valid[0]))]
+    praw, pmask = SO.filter_aggregate_rows_plain(pcols, acols, rows, n)
+    mask = valid[0] & (ts >= lo_t[:, None]) & (ts <= hi_t[:, None]) \
+        & valid[1] & (xf >= lo_f[:, None]) & (xf <= hi_f[:, None])
+    raw = rows_raw(mask, [(x.numpy(), v.numpy()) for x, v in acols], rows,
+                   n, [(int(m.sum()),) for m in mask])
+    assert np.array_equal(mask, pmask)
+    assert np.array_equal(raw, praw)
