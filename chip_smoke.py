@@ -8,7 +8,8 @@ path on one CUDA device and checks them:
   2. build    the CUDA kernels from src/repro_torch/kernels/csrc
   3. kernels  K1-K9, A7 and rungs 3 and 4's kernels (A6, stacked K1 and
               K2, the exchange, a merge) against their plain PyTorch
-              versions at main-path shapes (the serve phase's too), timed
+              versions at main-path shapes (the serve phase's too), and
+              K2, stacked K2 and A6 with 9 and 17 predicate columns, timed
               beside their bound and, where one PyTorch call computes the
               same function, that call
   4. main     TinySocial ingested through ``insert_batch`` (tiered merges
@@ -23,7 +24,8 @@ path on one CUDA device and checks them:
               ship nothing, retrace nothing and hit the plan cache
   4b. rung 4  ``mesh=4`` (lanes == partitions): the two chains (stacked
               A6), the skip-index select (stacked K1), the exact-range
-              aggregate (stacked K2) and grouped_topk (the exchange), one
+              aggregate (stacked K2) and grouped_topk (the exchange: its
+              partitions built on the card, the key hashed there), one
               stacked dispatch each, checked against the loop's rows; the
               partitions' partial aggregates merged (the merges) and
               checked against numpy
@@ -155,6 +157,7 @@ RUNG3_PATH = ("fused_index_chain",)
 RUNG4_PATH = ("fused_index_chain", "range_mask_stacked",
               "filter_aggregate_stacked", "spmd_exchange", "spmd_merge")
 EXCHANGE_H2D = "kernel.spmd_exchange.h2d_bytes"
+HOST_PIDS = "mesh.exchange_host_pids"
 MESH_LANES = 4
 
 
@@ -326,13 +329,17 @@ def rung4_phase(ds, rec, loop_rows):
                                  f"{st.spmd_partitions}")
             check(st.rows_fallback == 0, f"rung 4 {name}: row fallback")
         for _t, rows, st, s0, s1 in runs[1:]:
-            # the exchange's send planes are built per query (as in the
-            # reference); nothing else ships
+            # the exchange's send buffer is built per query (as the
+            # reference's send planes are); nothing else ships
             exch = s1.get(EXCHANGE_H2D, 0) - s0.get(EXCHANGE_H2D, 0)
             check(st.h2d_bytes == exch, f"rung 4 {name}: warm h2d "
                                         f"{st.h2d_bytes} beyond the "
                                         f"exchange's {exch}")
             check(st.kernel_retraces == 0, f"rung 4 {name}: warm retraces")
+            # grouped_topk's key (author-id, every row valid) is hashed
+            # on the card, not by the host
+            check(s1.get(HOST_PIDS, 0) == s0.get(HOST_PIDS, 0),
+                  f"rung 4 {name}: the host computed partition ids")
         rows = runs[-1][1]
         check(canon(rows) == canon(loop_rows[name]),
               f"rung 4 {name}: rows differ from the loop's")
@@ -778,6 +785,7 @@ def main() -> int:
                                           "l1_comps")}
     for case in (selfcheck.main_path_cases(dev, seed=args.seed)
                  + selfcheck.rung_cases(dev, seed=args.seed)
+                 + selfcheck.wide_pred_cases(dev, seed=args.seed)
                  + selfcheck.serve_cases(dev, args.seed, SERVE["requests"],
                                          **serve_shapes)):
         r = selfcheck.run_case(case)

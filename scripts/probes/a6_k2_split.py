@@ -3,9 +3,10 @@
 shapes, split launch by launch: the device µs a call of each kernel,
 memset and copy they run, by name (``time_model_kernels.split_us``, L2
 write-flushed before each call).  Then the same cases built without the
-last block's fold of the float64 node sums (``-DK2_PROBE_NO_TAIL``), which
-leaves the scan and the partials: the variants' sums are wrong by design
-and only their times are read.  One JSON line a (build, case).
+last block's fold of the float64 node sums (a patched copy of the
+sources under build/probes, ``patched.K2_NO_TAIL``), which leaves the
+scan and the partials: the variants' sums are wrong by design and only
+their times are read.  One JSON line a (build, case).
 
 Usage:  python scripts/probes/a6_k2_split.py [--iters 50]
         (from the repository root)
@@ -20,6 +21,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT / "scripts"))
+sys.path.insert(0, str(ROOT / "scripts" / "probes"))
 
 
 def main() -> int:
@@ -38,11 +40,10 @@ def main() -> int:
                           text=True)
     print(f"card: {card.stdout.strip()}", flush=True)
     dev = torch.device("cuda", 0)
-    base = list(ops.NVCC_FLAGS)
-    for name, flags in (("whole", []), ("no_tail", ["-DK2_PROBE_NO_TAIL"])):
-        ops.NVCC_FLAGS[:] = base + flags
-        ops._LIB[0] = None
-        ops.lib()
+    from patched import CSRC, K2_NO_TAIL, patched_csrc, use_csrc
+    for name, csrc in (("whole", CSRC),
+                       ("no_tail", patched_csrc("a6_no_tail", K2_NO_TAIL))):
+        use_csrc(ops, csrc)
         for case in SC.rung_cases(dev):
             if case["kernel"] not in ("fused_index_chain",
                                       "filter_aggregate_stacked"):
@@ -56,8 +57,7 @@ def main() -> int:
                               "split_us": split,
                               "span_us": split.pop("span")}),
                   flush=True)
-    ops.NVCC_FLAGS[:] = base
-    ops._LIB[0] = None
+    use_csrc(ops)
     return 0
 
 

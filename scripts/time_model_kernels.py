@@ -21,9 +21,9 @@ padding launches), and on 2**18 pairs drawn uniformly (the earlier
 runs' case), and rungs 3 and 4's A6 (fused index chain: its four
 ``selfcheck.rung_cases``, mask and aggregate mode at R = 1 and 4) and
 stacked K2 (R = 4, n = 2**19, K = 1, M = 2), and the exchange
-(``spmd_exchange``: grouped_topk's four [4, 4, 2**14] planes) beside a
-yardstick no single PyTorch call gives: one ``transpose(0, 1).contiguous()``
-a plane, summed (``yardstick_ms``).
+(``spmd_exchange``: grouped_topk's ~734,000 partial groups over 4
+partitions, beside one stable ``torch.argsort`` and an ``index_select`` a
+column region as its library yardstick).
 
 Usage:  python scripts/time_model_kernels.py [--src DIR [--src DIR]]
             [--kernels rmsnorm,lsm_decode_attention,flash_attention,
@@ -78,7 +78,7 @@ KERNELS = {"rmsnorm": ("rmsnorm",), "lsm_decode_attention": ("decode_partial",),
            "bitset_intersect_counts": ("bitset_intersect",),
            "fused_index_chain": ("chain", "agg_", "Memset", "Memcpy"),
            "stacked_filter_aggregate": ("agg_",),
-           "spmd_exchange": ("exchange",)}
+           "spmd_exchange": ("xch_", "exchange")}
 SERVE = ("rmsnorm", "lsm_decode_attention", "flash_attention")
 MAIN = ("fused_filter_aggregate", "edit_distances", "sorted_intersect_mask",
         "set_intersect_counts")
@@ -259,24 +259,6 @@ def split_us(fn, iters: int) -> dict:
     return out
 
 
-def exchange_yardstick_ms(SC, dev, iters: int) -> float:
-    """Device ms of one ``transpose(0, 1).contiguous()`` a plane over the
-    exchange case's planes (the same seed as ``rung_cases``), summed, L2
-    write-flushed before each call: a yardstick only, since the packed
-    exchange moves every plane in one launch."""
-    import numpy as np
-    import torch
-    rng = np.random.default_rng(36)
-    planes = []
-    for _ in range(2):
-        planes.append(torch.from_numpy(rng.integers(
-            0, 1 << 40, (4, 4, 1 << 14), dtype=np.int64)).to(dev))
-        planes.append(torch.from_numpy(
-            rng.random((4, 4, 1 << 14)) < 0.7).to(dev))
-    return SC._time_ms(lambda: [t.transpose(0, 1).contiguous()
-                                for t in planes], iters)["ms"]
-
-
 def one(src: str, run: int, iters: int, kernels: list) -> int:
     sys.path.insert(0, src)
     import torch
@@ -318,8 +300,6 @@ def one(src: str, run: int, iters: int, kernels: list) -> int:
         r.update(tree=src, run=run,
                  ms_clean=clean_ms(case["run"], KERNELS[opt], iters))
         r["split"] = split_us(case["run"], iters)
-        if opt == "spmd_exchange":
-            r["yardstick_ms"] = exchange_yardstick_ms(selfcheck, dev, iters)
         print(json.dumps(r), flush=True)
         if not r["ok"]:
             return 1

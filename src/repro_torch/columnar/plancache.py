@@ -29,10 +29,10 @@ shape, where the reference's jit core would trace.
 
 Declines are cheap and total: any input the fused dispatch cannot
 represent exactly (unordered key dictionary, obj-degraded validate
-column, fuzzy chains, live/storage mismatches mid-race, more than 8
-validate ranges) returns None and
+column, fuzzy chains, live/storage mismatches mid-race) returns None and
 the caller falls back to the per-operator path — results are
-bit-identical either way.
+bit-identical either way.  A6 takes any number of validate ranges, as
+the reference's chain does.
 """
 
 from __future__ import annotations
@@ -54,9 +54,6 @@ __all__ = ["PlanCache", "plan_cache", "set_enabled", "totals",
 _HITS = obs.counter("plan_cache.hits")
 _MISSES = obs.counter("plan_cache.misses")
 _ENTRIES = obs.gauge("plan_cache.entries")
-
-_MAX_PREDS = 8               # validate ranges A6 takes (csrc MAX_COLS)
-
 
 class PlanCache:
     """Plan-shape accounting for the fused chain dispatch: which shapes
@@ -205,8 +202,6 @@ def compile_chain(ds: Any, *, chain_ops: Tuple[str, ...], search_field: str,
             if made is None or made is O.EMPTY:
                 return None
             preds = made
-            if len(preds) > _MAX_PREDS:
-                return None        # A6 takes 8; the per-operator path any
         agg_arrays: List[Tuple[np.ndarray, np.ndarray]] = []
         agg_meta: List[Tuple] = []
         if aggs is not None:

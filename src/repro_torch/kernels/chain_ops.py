@@ -40,26 +40,13 @@ import torch
 
 from . import columnar_ops as CO
 from . import ops as _ops
+from .columnar_ops import bound_bits, range_mask_rows_cuda
 
 __all__ = ["fused_chain", "chain_plain", "chain_cuda", "agg_slots_plain",
-           "bound_bits", "split_raw", "unpack", "N_COUNTS"]
+           "split_raw", "unpack", "N_COUNTS"]
 
 N_COUNTS = 3                 # n_cand, n_found, n_valid
 _POS_DTYPES = (torch.int64, torch.int32)
-
-
-def bound_bits(los: Sequence[np.ndarray], his: Sequence[np.ndarray]
-               ) -> np.ndarray:
-    """int64 [R, k, 2]: each row's lo / hi a predicate (k >= 1), integer
-    bounds as int64 values and float64 bounds as their raw bits (the
-    kernels' per-row bound layout)."""
-    out = np.zeros((int(los[0].shape[0]), len(los), 2), dtype=np.int64)
-    for j, (lo, hi) in enumerate(zip(los, his)):
-        for e, b in enumerate((lo, hi)):
-            b = np.ascontiguousarray(b)
-            out[:, j, e] = b.view(np.int64) if b.dtype == np.float64 \
-                else b.astype(np.int64)
-    return out
 
 
 def _bits(x: torch.Tensor) -> int:
@@ -178,15 +165,13 @@ def chain_cuda(tiers: Sequence[Sequence[torch.Tensor]], abo: np.ndarray,
     """A6 on the card, one C call: the scatter launch, then the gather /
     compare / reduce launch (one per 8 aggregate columns), and a memset of
     the pooled flags first when they are new or their stamp wraps
-    (counted in ``chain_cuda.clears``).  The per-row scalars go up in one
-    copy.  Returns the packed result on the card (:func:`unpack`'s layout:
+    (counted in ``chain_cuda.clears``); with more than 8 validate ranges,
+    one stacked K1 launch before it (``columnar_ops.fold_extra_preds``).
+    The per-row scalars go up in one copy.  Returns the packed result on the card (:func:`unpack`'s layout:
     counts and column scalars, then the mask), which comes back in one
     copy."""
     dev = idx.device
     rows, nf, m = int(idx.shape[0]), len(tiers), len(aggs)
-    if len(preds) > CO._MAX_COLS:
-        raise ValueError(f"fused_index_chain takes at most {CO._MAX_COLS} "
-                         f"validate ranges, got {len(preds)}")
     if not (idx.is_cuda and idx.dtype == torch.int64
             and idx.is_contiguous() and tuple(idx.shape) == (rows, live_p2)):
         raise TypeError("fused_index_chain: a contiguous CUDA int64 "
@@ -199,6 +184,8 @@ def chain_cuda(tiers: Sequence[Sequence[torch.Tensor]], abo: np.ndarray,
                             "int64 [rows, width] positions expected")
     _check_cols(preds, rows, live_p2)
     _check_cols(aggs, rows, live_p2)
+    preds = CO.fold_extra_preds(
+        preds, lambda cols: range_mask_rows_cuda(cols, rows, live_p2))
     # the per-row scalars in one upload: bounds, (a, b, off), n_live
     bb = bound_bits([p[2] for p in preds], [p[3] for p in preds]) \
         if preds else np.zeros((rows, 0, 2), np.int64)

@@ -32,7 +32,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import heapq
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -48,7 +48,8 @@ __all__ = ["range_mask", "fused_filter_aggregate", "sorted_intersect_mask",
            "sorted_merge_take", "trace_count", "range_mask_plain",
            "filter_aggregate_plain", "sorted_intersect_plain",
            "range_mask_cuda", "filter_aggregate_cuda", "decode_aggregate",
-           "sorted_intersect_cuda"]
+           "sorted_intersect_cuda", "fold_extra_preds", "bound_bits",
+           "range_mask_rows_plain", "range_mask_rows_cuda"]
 
 _TRACES = {"n": 0}
 _SEEN: set = set()
@@ -58,13 +59,16 @@ def trace_count() -> int:
     return _TRACES["n"]
 
 
-def note_shape(kernel: str, *key: Any) -> None:
-    """Count the first sighting of a (kernel, pow2 shape, dtypes) key."""
+def note_shape(kernel: str, *key: Any) -> bool:
+    """Count the first sighting of a (kernel, pow2 shape, dtypes) key;
+    True if it was one."""
     k = (kernel,) + key
-    if k not in _SEEN:
-        _SEEN.add(k)
-        _TRACES["n"] += 1
-        _record_retrace()
+    if k in _SEEN:
+        return False
+    _SEEN.add(k)
+    _TRACES["n"] += 1
+    _record_retrace()
+    return True
 
 
 # (data [N], valid [N] bool, lo, hi) — already in the column's physical
@@ -294,6 +298,65 @@ def range_mask_cuda(cols: Sequence[Col], n: int) -> torch.Tensor:
 range_mask_cuda.launches = 0
 
 
+# a stacked predicate column (stacked K1 and K2, A6's validate ranges):
+# (data [R, n], valid [R, n], lo [R], hi [R]) with numpy bounds in the
+# data's dtype
+
+def bound_bits(los: Sequence[np.ndarray], his: Sequence[np.ndarray]
+               ) -> np.ndarray:
+    """int64 [R, k, 2]: each row's lo / hi a predicate (k >= 1), integer
+    bounds as int64 values and float64 bounds as their raw bits (the
+    kernels' per-row bound layout)."""
+    out = np.zeros((int(los[0].shape[0]), len(los), 2), dtype=np.int64)
+    for j, (lo, hi) in enumerate(zip(los, his)):
+        for e, b in enumerate((lo, hi)):
+            b = np.ascontiguousarray(b)
+            out[:, j, e] = b.view(np.int64) if b.dtype == np.float64 \
+                else b.astype(np.int64)
+    return out
+
+
+def device_cols(cols: Sequence[Tuple]) -> List[Col]:
+    """Stacked columns as kernel operands whose bounds go up apart."""
+    return [(c[0], c[1], None, None) for c in cols]
+
+
+def bounds_dev(pcols: Sequence[Tuple], dev: torch.device) -> torch.Tensor:
+    bb = bound_bits([c[2] for c in pcols], [c[3] for c in pcols])
+    return torch.from_numpy(bb).to(dev)
+
+
+def range_mask_rows_plain(pcols: Sequence[Tuple], rows: int, n: int
+                          ) -> torch.Tensor:
+    """Stacked K1's plain version: bool [R, n]."""
+    dev = pcols[0][0].device
+    m = torch.ones((rows, n), dtype=torch.bool, device=dev)
+    for x, v, lo, hi in pcols:
+        lo_t = torch.from_numpy(np.asarray(lo)).to(dev)[:, None]
+        hi_t = torch.from_numpy(np.asarray(hi)).to(dev)[:, None]
+        m = m & v & (x >= lo_t) & (x <= hi_t)
+    return m
+
+
+def range_mask_rows_cuda(pcols: Sequence[Tuple], rows: int, n: int
+                         ) -> torch.Tensor:
+    """Stacked K1 on the card (K1 with a row axis, each row against its
+    own bounds): one launch over every row (a pass per 8 predicates),
+    bool [R, n]."""
+    dev = pcols[0][0].device
+    out = torch.empty((rows, n), dtype=torch.bool, device=dev)
+    bounds = bounds_dev(pcols, dev)
+    f = _fn("rt_range_mask_rows", [_P, _I, _L, _I, _P, _P, _P])
+    rc = f(ctypes.cast(_descs(device_cols(pcols)), _P), len(pcols), n,
+           rows, bounds.data_ptr(), out.data_ptr(), _ops.stream(out))
+    range_mask_rows_cuda.launches += 1
+    _ops.check(rc, "range_mask (stacked)")
+    return out
+
+
+range_mask_rows_cuda.launches = 0
+
+
 def agg_blocks(n: int) -> int:
     """Grid of K2's launch: a function of n only, so the fold order (and
     every float64 sum) is reproducible at a given n.  One run of 8 rows a
@@ -340,17 +403,35 @@ def _agg_scratch(dev: torch.device, stride: int, rows: int = 1
     return got
 
 
+def fold_extra_preds(pcols: Sequence[Col],
+                     mask_fn: Callable[[Sequence[Col]], torch.Tensor]
+                     ) -> List[Col]:
+    """The predicate slots of K2 and A6's second pass for any number of
+    predicate columns.  Their kernel takes ``MAX_COLS``; past that,
+    ``mask_fn`` (K1, or stacked K1 for a row axis) ANDs predicates 7, 8,
+    ... into one byte mask, which becomes slot 7's validity.  Slot 7 keeps
+    column 7's data and bounds, so its bits are column 7's range AND that
+    mask: exactly the conjunction of predicates 7, 8, ..., and with slots
+    0-6 the conjunction of all.  Up to ``MAX_COLS`` columns nothing
+    changes: no K1 launch, the same operands."""
+    if len(pcols) <= _MAX_COLS:
+        return list(pcols)
+    head = _MAX_COLS - 1
+    x, _v, lo, hi = pcols[head]
+    return list(pcols[:head]) + [(x, mask_fn(pcols[head:]), lo, hi)]
+
+
 def filter_aggregate_cuda(pcols: Sequence[Col], acols: Sequence[Col],
                           n: int, dev: torch.device) -> torch.Tensor:
-    """K2 on the card: one launch per ``MAX_COLS`` aggregate columns.
-    Returns the raw int64 result row on the device: ``[count, (valid
-    count, sum, min, max) per aggregate column]`` with float64 slots as
-    raw bits (see :func:`decode_aggregate`), float64 sums folded in
-    :func:`tree_sum`'s order.  Operands that are not all 16-byte aligned
-    are read row by row."""
-    if len(pcols) > _MAX_COLS:
-        raise ValueError(f"fused_filter_aggregate takes at most "
-                         f"{_MAX_COLS} predicate columns, got {len(pcols)}")
+    """K2 on the card: one launch per ``MAX_COLS`` aggregate columns, and
+    one K1 launch first where there are more than ``MAX_COLS`` predicate
+    columns (:func:`fold_extra_preds`).  Returns the raw int64 result row
+    on the device: ``[count, (valid count, sum, min, max) per aggregate
+    column]`` with float64 slots as raw bits (see
+    :func:`decode_aggregate`), float64 sums folded in :func:`tree_sum`'s
+    order.  Operands that are not all 16-byte aligned are read row by
+    row."""
+    pcols = fold_extra_preds(pcols, lambda cols: range_mask_cuda(cols, n))
     m = len(acols)
     pd, ad = _descs(pcols), _descs(acols)
     vec = all(c[0].data_ptr() % 16 == 0 and c[1].data_ptr() % 16 == 0
@@ -456,8 +537,11 @@ def fused_filter_aggregate(preds: Sequence[Pred],
             valid = np.concatenate([valid, np.zeros(pad, dtype=bool)])
         padded_aggs.append((data, valid))
     pcols, acols, missed = _fetch_cols(preds, padded_aggs)
-    note_shape("fused_filter_aggregate", np2, _dtype_key(pcols),
-               _dtype_key(acols))
+    if note_shape("fused_filter_aggregate", np2, _dtype_key(pcols),
+                  _dtype_key(acols)) and pcols:
+        # the reference's aggregate core calls its mask core, a jit of its
+        # own, which traces there where K1 has not seen the shape
+        note_shape("range_mask", np2, _dtype_key(pcols))
     dev = _ops.target()
     if dev.type == "cuda":
         raw = filter_aggregate_cuda(pcols, acols, np2, dev).cpu().numpy()

@@ -164,9 +164,6 @@ __device__ __forceinline__ void tree_step(const Run& r, uint32_t sel,
                                           TreeSmem& ts, int warp, int lane,
                                           double* nodes, int64_t node0,
                                           int64_t n_nodes) {
-#ifdef K2_PROBE_NO_TREE              // scripts/probes: no staged windows
-  return;
-#endif
   sel &= valid_bits(r);
   __syncthreads();                   // the previous step's readers are done
 #pragma unroll
@@ -470,9 +467,6 @@ agg_kernel(ColTable p, ColTable a, int64_t n, int vec, int64_t* part,
   // missing child adds +0.0), level by level into the node array's tail
 #pragma unroll 1
   for (int j = 0; j < NA; ++j) {
-#ifdef K2_PROBE_NO_TAIL              // scripts/probes: no node fold
-    break;
-#endif
     if (a.c[j].dtype != DT_F64) continue;
     const double* src = nodes + j * node_stride;
     double* dst = nodes + j * node_stride + n_nodes;

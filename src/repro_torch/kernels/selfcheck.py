@@ -198,8 +198,10 @@ def _columns(rng: np.random.Generator, n: int, kinds: List[str],
     """TinySocial-like columns: int64 epoch-microsecond timestamps (far
     beyond 2**24), int64 ids, float64 with NaN (or without: "f64n"; or
     every third row NaN, every other row valid: "nan"), int32 dictionary
-    codes.  ``offset`` (data elements, validity bytes): each column's data
-    and validity are views that start that far into their storage."""
+    codes, and int64 counts of which a predicate keeps ~98% ("loose", no
+    upper bound: many of them ANDed still keep rows).  ``offset`` (data elements, validity
+    bytes): each column's data and validity are views that start that far
+    into their storage."""
     cols = []
     for kind in kinds:
         valid = rng.random(n) < 0.95
@@ -219,6 +221,10 @@ def _columns(rng: np.random.Generator, n: int, kinds: List[str],
                 valid[::2] = True
                 valid[1::2] = False
             lo, hi = 900.0, None
+        elif kind == "loose":
+            x = rng.integers(0, 1000, n, dtype=np.int64)
+            valid = rng.random(n) < 0.995
+            lo, hi = 10, None
         else:                                  # "code": int32 dictionary
             x = rng.integers(0, 50, n).astype(np.int32)
             lo, hi = 5, 40
@@ -886,25 +892,81 @@ def a6_case(rows: int, n_live: int, tiers: int, fields: int,
                                             + 4 * len(agg_kinds))}
 
 
-def exchange_case(p: int, cap: int, seed: int, dev: torch.device
-                  ) -> Dict[str, Any]:
-    """The exchange of two int64 columns' data and validity planes
-    [p, p, cap] (grouped_topk's partial aggregates: author-id, count)."""
-    rng = np.random.default_rng(seed)
-    planes = []
-    for _ in range(2):
-        planes.append(rng.integers(0, 1 << 40, (p, p, cap), dtype=np.int64))
-        planes.append(rng.random((p, p, cap)) < 0.7)
-    buf, meta = SO.pack_planes(planes)
-    send = torch.from_numpy(buf).to(dev)
-    nbytes = sum(a.nbytes for a in planes)
+def exchange_compare(got: torch.Tensor, ref: torch.Tensor,
+                     lay: "SO.ExchangeLayout") -> float:
+    """0.0 when two received buffers agree byte for byte in the counts and
+    in every column's data and validity (the padding between them is
+    never written), inf otherwise."""
+    g, r = got.cpu().numpy(), ref.cpu().numpy()
+    gc, gcols = SO.received(g, lay)
+    rc, rcols = SO.received(r, lay)
+    same = np.array_equal(gc, rc) and all(
+        a.tobytes() == b.tobytes()
+        for ga, ra in zip(gcols, rcols) for a, b in zip(ga, ra))
+    return 0.0 if same else math.inf
 
+
+def exchange_arrays(seed: int, p: int = 4, users: int = 200_000,
+                    per: int = 500_000) -> Tuple[list, List[int]]:
+    """grouped_topk's exchange at ``chip_smoke.py``'s scale: each of ``p``
+    messages partitions' ``per`` author-ids drawn uniformly over ``users``
+    (tinysocial.gen_messages) and grouped, its partial groups (author-id,
+    count; int64, every row valid): ~183,600 rows a partition at the
+    defaults.  Returns (each column's (data, validity) a source, rows a
+    source)."""
+    rng = np.random.default_rng(seed)
+    cols: list = [[], []]
+    rows = []
+    for _ in range(p):
+        ids, cnt = np.unique(rng.integers(0, users, per), return_counts=True)
+        ok = np.ones(ids.shape[0], bool)
+        cols[0].append((ids.astype(np.int64), ok))
+        cols[1].append((cnt.astype(np.int64), ok))
+        rows.append(int(ids.shape[0]))
+    return cols, rows
+
+
+def exchange_case(seed: int, dev: torch.device, p: int = 4
+                  ) -> Dict[str, Any]:
+    """The exchange of grouped_topk's partial groups (``exchange_arrays``),
+    the key (author-id) hashed on the card: the send buffer staged and
+    uploaded once, then the kernel's three launches against the plain
+    version, byte for byte.  The yardstick: one stable ``torch.argsort``
+    of the partition ids and an ``index_select`` a column region."""
+    cols, rows = exchange_arrays(seed, p)
+    stage, lay = SO.stage_exchange(cols, rows, 0, p)
+    send = stage.to(dev, non_blocking=True)
+    pid = torch.from_numpy(_hash_pids(cols[0], p)).to(dev)
+    area = send[lay.head:lay.head + lay.out_area]
+    regions = [(area[d:d + lay.n * dt.itemsize].view(
+        torch.int64 if dt.itemsize == 8 else torch.uint8),
+        area[v:v + lay.n]) for dt, d, v in lay.cols]
+
+    def library():
+        order = torch.argsort(pid, stable=True)
+        return [t.index_select(0, order) for r in regions for t in r]
+    col_bytes = sum((dt.itemsize + 1) * lay.n for dt, _d, _v in lay.cols)
     return {"kernel": "spmd_exchange",
-            "label": f"p={p} cap={cap} planes={len(planes)}",
-            "run": lambda: SO.exchange_cuda(send, meta, p),
-            "plain": lambda: SO.exchange_plain(send, meta, p),
-            "library": None, "compare": _mask_compare,
-            "bytes": 2 * nbytes, "ops": 0}
+            "label": f"p={p} rows={lay.n} ({', '.join(map(str, rows))}) "
+                     f"columns={len(lay.cols)} key hashed on the card",
+            "run": lambda: SO.exchange_cuda(send, lay),
+            "plain": lambda: SO.exchange_plain(send, lay),
+            "library": library,
+            "compare": lambda got, ref: exchange_compare(got, ref, lay),
+            # every column read and written once (the hashed key is one
+            # of them; host partition ids would add their int32 read) and
+            # the counts
+            "bytes": 2 * col_bytes + 8 * p * p
+            + (4 * lay.n if lay.key_kind == SO.XK_PID else 0), "ops": 0}
+
+
+def _hash_pids(keys: List[Tuple[np.ndarray, np.ndarray]], p: int
+                 ) -> np.ndarray:
+    """The partition ids of the sources' int64 keys, back to back
+    (storage/dataset.hash_partition_array's hash)."""
+    k = np.concatenate([d for d, _v in keys]).astype(np.uint64)
+    h = (k * np.uint64(11400714819323198485)) >> np.uint64(40)
+    return (h % np.uint64(p)).astype(np.int64)
 
 
 def merge_case(rows: int, m: int, op: str, seed: int, dev: torch.device,
@@ -939,8 +1001,8 @@ def rung_cases(dev: torch.device, seed: int = 0) -> List[Dict]:
     field, no validate range) and aggregate mode (an int64 and a float64
     column) at R = 1 and R = 4, with a padding row; stacked K1 and K2 at
     R = 4 (the skip-index select and the exact-range aggregate); the
-    exchange of grouped_topk's two columns at p = 4; a merge of 4
-    partitions' partials."""
+    exchange of grouped_topk's partial groups at p = 4 (~734,000 rows,
+    two int64 columns); a merge of 4 partitions' partials."""
     n = 500_000
     return [a6_case(1, n, 4, 1, [], [], seed + 30, dev),
             a6_case(4, n, 4, 1, [], [], seed + 31, dev),
@@ -950,8 +1012,32 @@ def rung_cases(dev: torch.device, seed: int = 0) -> List[Dict]:
             k1_rows_case(4, 1 << 19, ["ts"], seed + 34, dev),
             k2_rows_case(4, 1 << 19, ["ts"], ["id", "f64n"], seed + 35,
                          dev),
-            exchange_case(4, 1 << 14, seed + 36, dev),
+            exchange_case(seed + 36, dev),
             merge_case(4, 1 << 10, "sum", seed + 37, dev)]
+
+
+# predicate columns past the kernels' 8 slots: predicates 7, 8, ... ANDed
+# by K1 (stacked K1 on a row axis) into slot 7's validity first
+WIDE9 = ["ts", "id", "loose", "f64", "code", "loose", "loose", "nan",
+         "loose"]
+WIDE17 = WIDE9 + ["loose", "ts", "loose", "code", "loose", "loose", "f64n",
+                  "loose"]
+
+
+def wide_pred_cases(dev: torch.device, seed: int = 0) -> List[Dict]:
+    """K2, stacked K2 and A6 with 9 and 17 predicate columns (validate
+    ranges for A6) at the rung cases' shapes: K2 at n = 2**19 with an
+    int64 and a float64 aggregate, stacked K2 at R = 4, A6 in aggregate
+    mode at R = 1 (9) and in mask mode at R = 4 with a padding row
+    (17)."""
+    n = 1 << 19
+    return [k2_case(n, WIDE9, ["id", "f64n"], seed + 40, dev),
+            k2_case(n, WIDE17, ["id", "f64n"], seed + 41, dev),
+            k2_rows_case(4, n, WIDE9, ["id", "f64n"], seed + 42, dev),
+            k2_rows_case(4, n, WIDE17, ["id", "f64n"], seed + 43, dev),
+            a6_case(1, 500_000, 4, 1, WIDE9, ["id", "f64n"], seed + 44, dev),
+            a6_case(4, 500_000, 4, 1, WIDE17, [], seed + 45, dev,
+                    empty_last=True)]
 
 
 # ---------------------------------------------------------------------------

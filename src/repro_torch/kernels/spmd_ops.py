@@ -7,9 +7,10 @@ hand-written CUDA kernels.
   filter_aggregate_rows(...)  stacked K2 (``csrc/filter_aggregate.cu``
                               with a row axis): each row's mask, survivor
                               count and per-column count / sum / min / max
-  exchange_planes(...)        the hash exchange's all-to-all of [p, p, cap]
-                              planes, which on one card is a swap of their
-                              first two axes (``csrc/spmd_ops.cu``)
+  stage_exchange(...),        the hash exchange: the sources' rows sent as
+  exchange_cuda(...)          they are, partitioned on the card by a
+                              stable counting sort on their partition ids
+                              (``csrc/spmd_ops.cu``)
   merge_rows(...)             a [R, M] array of partials reduced over its
                               rows, left to right (``csrc/spmd_ops.cu``)
 
@@ -23,68 +24,21 @@ runs the plain PyTorch version beside it.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence, Tuple
+from typing import Any, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from . import columnar_ops as CO
 from . import ops as _ops
-from .chain_ops import agg_slots_plain, bound_bits, unpack
+from .chain_ops import agg_slots_plain, unpack
+from .columnar_ops import range_mask_rows_cuda, range_mask_rows_plain
 
 __all__ = ["range_mask_rows", "range_mask_rows_plain",
            "range_mask_rows_cuda", "filter_aggregate_rows",
            "filter_aggregate_rows_plain", "filter_aggregate_rows_cuda",
-           "exchange_planes", "exchange_plain", "exchange_cuda",
-           "pack_planes", "merge_rows", "merge_plain", "merge_cuda"]
-
-# a stacked predicate column: (data [R, n], valid [R, n], lo [R], hi [R])
-# with numpy bounds in the data's dtype
-
-
-def _rows_mask_plain(pcols: Sequence[Tuple], rows: int, n: int,
-                     dev: torch.device) -> torch.Tensor:
-    m = torch.ones((rows, n), dtype=torch.bool, device=dev)
-    for x, v, lo, hi in pcols:
-        lo_t = torch.from_numpy(np.asarray(lo)).to(dev)[:, None]
-        hi_t = torch.from_numpy(np.asarray(hi)).to(dev)[:, None]
-        m = m & v & (x >= lo_t) & (x <= hi_t)
-    return m
-
-
-def range_mask_rows_plain(pcols: Sequence[Tuple], rows: int, n: int
-                          ) -> torch.Tensor:
-    """Stacked K1's plain version: bool [R, n]."""
-    return _rows_mask_plain(pcols, rows, n, pcols[0][0].device)
-
-
-def _device_cols(cols: Sequence[Tuple]) -> List[Tuple]:
-    return [(c[0], c[1], None, None) for c in cols]
-
-
-def _bounds_dev(pcols: Sequence[Tuple], dev: torch.device) -> torch.Tensor:
-    bb = bound_bits([c[2] for c in pcols], [c[3] for c in pcols])
-    return torch.from_numpy(bb).to(dev)
-
-
-def range_mask_rows_cuda(pcols: Sequence[Tuple], rows: int, n: int
-                         ) -> torch.Tensor:
-    """Stacked K1 on the card: one launch over every row (a pass per 8
-    predicates), bool [R, n]."""
-    dev = pcols[0][0].device
-    out = torch.empty((rows, n), dtype=torch.bool, device=dev)
-    bounds = _bounds_dev(pcols, dev)
-    f = CO._fn("rt_range_mask_rows",
-               [CO._P, CO._I, CO._L, CO._I, CO._P, CO._P, CO._P])
-    rc = f(ctypes.cast(CO._descs(_device_cols(pcols)), CO._P), len(pcols),
-           n, rows, bounds.data_ptr(), out.data_ptr(), _ops.stream(out))
-    range_mask_rows_cuda.launches += 1
-    _ops.check(rc, "range_mask (stacked)")
-    return out
-
-
-range_mask_rows_cuda.launches = 0
-
+           "ExchangeLayout", "exchange_layout", "stage_exchange", "download",
+           "exchange_plain", "exchange_cuda", "received", "EXCHANGE_MAX_P", "merge_rows", "merge_plain", "merge_cuda"]
 
 def range_mask_rows(pcols: Sequence[Tuple], rows: int, n: int
                     ) -> np.ndarray:
@@ -99,7 +53,7 @@ def filter_aggregate_rows_plain(pcols: Sequence[Tuple],
                                 ) -> Tuple[np.ndarray, np.ndarray]:
     """Stacked K2's plain version: (raw int64 [R, 1 + 4 M], mask [R, n])
     in the kernel's layout (``chain_ops.split_raw`` with one count)."""
-    mask = _rows_mask_plain(pcols, rows, n, pcols[0][0].device)
+    mask = range_mask_rows_plain(pcols, rows, n)
     raw = np.zeros((rows, 1 + 4 * len(acols)), dtype=np.int64)
     for r in range(rows):
         raw[r, 0] = int(mask[r].sum())
@@ -114,18 +68,17 @@ def filter_aggregate_rows_cuda(pcols: Sequence[Tuple],
     """Stacked K2 on the card: one launch over every row (per 8 aggregate
     columns), each row folding into its own scratch and out row.  Returns
     the packed result on the card (``chain_ops.unpack``'s layout), which
-    comes back in one copy."""
-    if len(pcols) > CO._MAX_COLS:
-        raise ValueError(f"stacked fused_filter_aggregate takes at most "
-                         f"{CO._MAX_COLS} predicate columns, got "
-                         f"{len(pcols)}")
+    comes back in one copy.  More than 8 predicate columns add one
+    stacked K1 launch first (``columnar_ops.fold_extra_preds``)."""
+    pcols = CO.fold_extra_preds(
+        pcols, lambda cols: range_mask_rows_cuda(cols, rows, n))
     dev = pcols[0][0].device
     m = len(acols)
-    pd = CO._descs(_device_cols(pcols))
-    ad = CO._descs(_device_cols(acols))
+    pd = CO._descs(CO.device_cols(pcols))
+    ad = CO._descs(CO.device_cols(acols))
     vec = all(t.data_ptr() % 16 == 0 for c in list(pcols) + list(acols)
               for t in c[:2])
-    bounds = _bounds_dev(pcols, dev)
+    bounds = CO.bounds_dev(pcols, dev)
     stride = CO.tree_node_stride(n)
     part, ticket, nodes = CO._agg_scratch(dev, stride, rows)
     w = 1 + 4 * m
@@ -158,49 +111,198 @@ def filter_aggregate_rows(pcols: Sequence[Tuple], acols: Sequence[Tuple],
 
 
 # ---------------------------------------------------------------------------
-# the exchange: [p, p, cap] planes, packed into one byte buffer
+# the exchange: a stable partition of the sources' rows by partition id
 # ---------------------------------------------------------------------------
 
-def pack_planes(planes: Sequence[np.ndarray]
-                ) -> Tuple[np.ndarray, np.ndarray]:
-    """(bytes, meta): the planes back to back, each at a 16-byte aligned
-    offset, and int64 [n_planes, 3] (offset, bytes of a (i, j) block,
-    bytes of the alignment gap after the plane)."""
-    meta = np.zeros((len(planes), 3), dtype=np.int64)
-    off = 0
-    for q, a in enumerate(planes):
-        p = a.shape[0]
-        size = -(-a.nbytes // 16) * 16
-        meta[q] = off, a.nbytes // (p * p), size - a.nbytes
-        off += size
-    buf = np.zeros(off, dtype=np.uint8)
-    for q, a in enumerate(planes):
-        o = int(meta[q, 0])
-        buf[o:o + a.nbytes] = np.ascontiguousarray(a).reshape(-1).view(
-            np.uint8)
-    return buf, meta
+XK_I64, XK_U8, XK_PID = 0, 1, 2          # csrc/spmd_ops.cu key kinds
+# partitions the card's counters hold (p + 1 int64 slots a warp, in 48 KB
+# of shared memory with one warp a block at the most)
+EXCHANGE_MAX_P = 4096
+# storage/dataset.hash_partition_array's multiplier, as an int64 whose
+# wrapping product has the same bits as the uint64 one
+_HASH_MUL = 11400714819323198485 - (1 << 64)
+_SMEM = 48 * 1024
 
 
-def exchange_plain(send: torch.Tensor, meta: np.ndarray, p: int
-                   ) -> torch.Tensor:
-    """The exchange's plain version: every plane's (i, j) block to (j, i)."""
-    recv = torch.zeros_like(send)
-    for off, blk, _gap in meta.tolist():
-        n = p * p * blk
-        src = send[off:off + n].view(p, p, blk)
-        recv[off:off + n].view(p, p, blk).copy_(src.transpose(0, 1))
+def _a16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+class ExchangeLayout(NamedTuple):
+    """Where an exchange's operands sit in its two byte buffers.
+
+    send: the header (int64: ``src_rows`` [p + 1], the first tile of each
+    source [p + 1], a column table [C, 3]), then at ``head`` the column
+    area: a column's data (n elements) and validity (n bytes), each at a
+    16-byte aligned offset, the sources' rows back to back; then, where
+    the host computed them, the int32 partition ids.  recv: the counts
+    [p, p] (int64, rows of source i bound for j), then at ``recv_head``
+    the received column area, the same offsets holding the rows
+    dest-major."""
+    p: int
+    n: int
+    src_rows: np.ndarray                  # int64 [p + 1]
+    tile0: np.ndarray                     # int64 [p + 1] first tiles
+    cols: Tuple[Tuple[np.dtype, int, int], ...]   # dtype, data, validity
+    key_kind: int
+    key_off: int
+    head: int
+    area: int                             # bytes sent after head
+    out_area: int                         # bytes received after recv_head
+    recv_head: int
+    warps: int                            # a block's; 128 rows a warp
+
+    @property
+    def send_bytes(self) -> int:
+        return self.head + self.area
+
+    @property
+    def recv_bytes(self) -> int:
+        return self.recv_head + self.out_area
+
+    @property
+    def ntiles(self) -> int:
+        return int(self.tile0[-1])
+
+
+def exchange_layout(rows: Sequence[int], dtypes: Sequence[np.dtype],
+                    key: Optional[int], p: int) -> ExchangeLayout:
+    """The layout of an exchange of ``rows[i]`` rows from each source with
+    columns of ``dtypes`` (8- or 1-byte elements); ``key``: the column
+    hashed on the card, or None for host partition ids."""
+    if len(rows) != p or not 1 <= p <= EXCHANGE_MAX_P:
+        raise ValueError(f"an exchange of {len(rows)} sources over {p} "
+                         f"partitions (1 .. {EXCHANGE_MAX_P})")
+    src_rows = np.zeros(p + 1, np.int64)
+    src_rows[1:] = np.cumsum(rows)
+    n = int(src_rows[-1])
+    # a block's tile: its warps' runs of 128 rows (csrc XW_ROWS), as many
+    # warps as p + 1 int64 counters each fit in 48 KB, at most 8
+    warps = max(1, min(8, _SMEM // (8 * (p + 1))))
+    tile_rows = 128 * warps
+    cols, off = [], 0
+    for dt in dtypes:
+        dt = np.dtype(dt)
+        if dt.itemsize not in (1, 8):
+            raise TypeError(f"exchange: {dt} columns have no kernel")
+        d = off
+        off += _a16(n * dt.itemsize)
+        cols.append((dt, d, off))
+        off += _a16(n)
+    out_area = off
+    if key is None:
+        key_kind, key_off = XK_PID, off
+        off += _a16(4 * n)
+    else:
+        dt, key_off, _v = cols[key]
+        key_kind = XK_I64 if dt.itemsize == 8 else XK_U8
+    tile0 = np.zeros(p + 1, np.int64)
+    tile0[1:] = np.cumsum([-(-r // tile_rows) for r in rows])
+    return ExchangeLayout(
+        p, n, src_rows, tile0, tuple(cols), key_kind, key_off,
+        _a16(8 * (2 * (p + 1) + 3 * len(cols))), off, out_area,
+        _a16(8 * p * p), warps)
+
+
+def stage_exchange(cols: Sequence[Sequence[Tuple[np.ndarray, np.ndarray]]],
+                   rows: Sequence[int], key: Any, p: int
+                   ) -> Tuple[torch.Tensor, ExchangeLayout]:
+    """The send buffer of an exchange, filled on the host: ``cols[c][i]``
+    is source i's (data, validity) of column c (``rows[i]`` rows), ``key``
+    the index of the column the card hashes, or a list of each source's
+    partition ids.  Pinned when the operands go to a card, so it goes up
+    in one asynchronous copy."""
+    lay = exchange_layout(rows, [c[0][0].dtype for c in cols],
+                          key if isinstance(key, int) else None, p)
+    pinned = _ops.target().type == "cuda"
+    buf = torch.empty(lay.send_bytes, dtype=torch.uint8,
+                      pin_memory=pinned)
+    host = buf.numpy()
+    meta = [lay.src_rows, lay.tile0]
+    meta += [np.asarray([dt.itemsize, d, v], np.int64)
+             for dt, d, v in lay.cols]
+    head = np.concatenate(meta)
+    host[:head.nbytes] = head.view(np.uint8)
+    area = host[lay.head:]
+    r = lay.src_rows
+    for (dt, doff, voff), per in zip(lay.cols, cols):
+        data = area[doff:doff + lay.n * dt.itemsize].view(dt)
+        valid = area[voff:voff + lay.n].view(np.bool_)
+        for i, (d, v) in enumerate(per):
+            np.copyto(data[r[i]:r[i + 1]], d[:rows[i]])
+            np.copyto(valid[r[i]:r[i + 1]], v[:rows[i]])
+    if lay.key_kind == XK_PID:
+        ids = area[lay.key_off:lay.key_off + 4 * lay.n].view(np.int32)
+        for i, pid in enumerate(key):
+            np.copyto(ids[r[i]:r[i + 1]], pid[:rows[i]], casting="unsafe")
+    return buf, lay
+
+
+def download(recv: torch.Tensor) -> np.ndarray:
+    """A device buffer back to the host in one copy (into pinned memory
+    from PyTorch's caching host allocator), as numpy."""
+    if not recv.is_cuda:
+        return recv.numpy()
+    host = torch.empty(recv.numel(), dtype=torch.uint8, pin_memory=True)
+    host.copy_(recv, non_blocking=True)
+    torch.cuda.current_stream(recv.device).synchronize()
+    return host.numpy()
+
+
+def _elem_view(b: torch.Tensor, dt: np.dtype) -> torch.Tensor:
+    return b.view(torch.int64 if dt.itemsize == 8 else torch.uint8)
+
+
+def exchange_plain(send: torch.Tensor, lay: ExchangeLayout) -> torch.Tensor:
+    """The exchange's plain version on ``send``'s device: the partition
+    ids (the hash in wrapping int64 arithmetic, or the host's), a stable
+    argsort of them and a gather of every column, and the counts."""
+    dev, n, p = send.device, lay.n, lay.p
+    area = send[lay.head:lay.head + lay.area]
+    if lay.key_kind == XK_PID:
+        pid = area[lay.key_off:lay.key_off + 4 * n].view(
+            torch.int32).to(torch.int64)
+    else:
+        es = 8 if lay.key_kind == XK_I64 else 1
+        k = area[lay.key_off:lay.key_off + es * n]
+        k = k.view(torch.int64) if es == 8 else k.to(torch.int64)
+        pid = (((k * _HASH_MUL) >> 40) & 0xFFFFFF) % p
+    order = torch.argsort(pid, stable=True)
+    src = torch.repeat_interleave(
+        torch.arange(p, device=dev),
+        torch.from_numpy(np.diff(lay.src_rows)).to(dev))
+    recv = torch.empty(lay.recv_bytes, dtype=torch.uint8, device=dev)
+    recv[:8 * p * p].view(torch.int64).copy_(
+        torch.bincount(src * p + pid, minlength=p * p))
+    out = recv[lay.recv_head:]
+    for dt, doff, voff in lay.cols:
+        nb = n * dt.itemsize
+        _elem_view(out[doff:doff + nb], dt).copy_(
+            _elem_view(area[doff:doff + nb], dt)[order])
+        out[voff:voff + n].copy_(area[voff:voff + n][order])
     return recv
 
 
-def exchange_cuda(send: torch.Tensor, meta: np.ndarray, p: int
-                  ) -> torch.Tensor:
-    """The exchange on the card: one launch over every plane."""
-    recv = torch.empty_like(send)
-    meta_d = torch.from_numpy(np.ascontiguousarray(meta)).to(send.device)
-    f = CO._fn("rt_exchange_planes",
-               [CO._P, CO._P, CO._P, CO._I, CO._I, CO._P])
-    rc = f(send.data_ptr(), recv.data_ptr(), meta_d.data_ptr(),
-           int(meta.shape[0]), p, _ops.stream(send))
+def exchange_cuda(send: torch.Tensor, lay: ExchangeLayout) -> torch.Tensor:
+    """The exchange on the card, one C call of three launches (histogram,
+    scan, scatter; ``csrc/spmd_ops.cu``)."""
+    if not (send.is_cuda and send.dtype == torch.uint8
+            and send.is_contiguous() and send.numel() == lay.send_bytes
+            and send.data_ptr() % 16 == 0):
+        raise TypeError("spmd exchange: a contiguous, 16-byte aligned CUDA "
+                        "uint8 send buffer of the layout's size expected")
+    dev = send.device
+    recv = torch.empty(lay.recv_bytes, dtype=torch.uint8, device=dev)
+    cells = lay.p * lay.ntiles
+    hist = torch.empty(cells, dtype=torch.int32, device=dev)
+    offs = torch.empty(cells + 1, dtype=torch.int64, device=dev)
+    f = CO._fn("rt_exchange",
+               [CO._P, CO._L, CO._I, CO._L, CO._I, CO._I, CO._L, CO._L,
+                CO._I, CO._P, CO._L, CO._P, CO._P, CO._P])
+    rc = f(send.data_ptr(), lay.head, lay.p, lay.n, len(lay.cols),
+           lay.key_kind, lay.key_off, lay.ntiles, lay.warps,
+           recv.data_ptr(), lay.recv_head, hist.data_ptr(), offs.data_ptr(),
+           _ops.stream(send))
     exchange_cuda.launches += 1
     _ops.check(rc, "spmd_exchange")
     return recv
@@ -209,18 +311,15 @@ def exchange_cuda(send: torch.Tensor, meta: np.ndarray, p: int
 exchange_cuda.launches = 0
 
 
-def exchange_planes(planes: Sequence[np.ndarray], p: int
-                    ) -> List[np.ndarray]:
-    """All-to-all of [p, p, cap] planes on one device: ``recv[j, i] =
-    send[i, j]`` for every plane, in one launch on the card."""
-    buf, meta = pack_planes(planes)
-    send = torch.from_numpy(buf).to(_ops.target())
-    run = exchange_cuda if send.is_cuda else exchange_plain
-    host = run(send, meta, p).cpu().numpy()
-    out = []
-    for a, (off, _blk, _gap) in zip(planes, meta.tolist()):
-        out.append(host[off:off + a.nbytes].view(a.dtype).reshape(a.shape))
-    return out
+def received(host: np.ndarray, lay: ExchangeLayout
+             ) -> Tuple[np.ndarray, List[Tuple[np.ndarray, np.ndarray]]]:
+    """(counts [p, p], each column's (data, validity) over all ``n`` rows,
+    dest-major): views of a received buffer on the host."""
+    counts = host[:8 * lay.p * lay.p].view(np.int64).reshape(lay.p, lay.p)
+    area = host[lay.recv_head:]
+    return counts, [(area[d:d + lay.n * dt.itemsize].view(dt),
+                     area[v:v + lay.n].view(np.bool_))
+                    for dt, d, v in lay.cols]
 
 
 # ---------------------------------------------------------------------------

@@ -13,8 +13,9 @@ run as one launch over the stacked rows:
                        ``columnar/plancache``'s ``run_all``)
   select masks         stacked K1 (:func:`batched_range_masks`)
   fused aggregates     stacked K2 (:func:`batched_select_aggregate`)
-  hash repartitions    the exchange of [p, p, cap] planes
-                       (:func:`exchange_batches`, lanes == partitions)
+  hash repartitions    the exchange: the sources' rows partitioned on
+                       the card (:func:`exchange_batches`, lanes ==
+                       partitions)
   partial-agg merges   a reduction over the stacked rows
                        (:func:`psum_merge`, :func:`pmin_merge`,
                        :func:`pmax_merge`)
@@ -35,6 +36,9 @@ Metrics (the reference's names, docs/METRICS.md section "mesh"):
   mesh.spmd_fallbacks           counter: eligible calls that fell back to
                                 the python loop (operand drift)
   mesh.exchange_rows            counter: rows moved by the exchange
+  mesh.exchange_host_pids       counter: exchanges whose partition ids the
+                                host computed (a key other than one int64
+                                or bool column with every row valid)
   mesh.shard<k>.h2d_bytes       counter: lane k's share of stacked uploads
   mesh.partitions_per_dispatch  histogram: stacked partitions a dispatch
 """
@@ -71,6 +75,7 @@ _DISPATCHES = obs.counter("mesh.spmd_dispatches")
 _PARTITIONS = obs.counter("mesh.spmd_partitions")
 _FALLBACKS = obs.counter("mesh.spmd_fallbacks")
 _EXCH_ROWS = obs.counter("mesh.exchange_rows")
+_HOST_PIDS = obs.counter("mesh.exchange_host_pids")
 _PART_HIST = obs.histogram("mesh.partitions_per_dispatch")
 
 
@@ -487,21 +492,18 @@ def batched_select_aggregate(batches: Sequence[Any],
 _EXCHANGE_KINDS = ("i64", "f64", "bool", "dt", "date")
 
 
-def exchange_batches(cparts: Sequence[Any], keys: Sequence[str], p: int
-                     ) -> Optional[Tuple[List[Any], int]]:
-    """Hash-repartition ColumnBatches across the mesh's lanes with one
-    exchange launch over every column plane (MToNPartitioningConnector).
-    Placement and row order are bit-identical to the host bucketing path
-    (same ``partition_ids`` hash, source-major row order).  Returns
-    (batches, rows moved), or None when the exchange must stay host-side:
-    lanes != partition count, schema drift across partitions, or
-    non-numeric (string/obj) columns whose dictionary codes are
-    partition-local."""
+def _exchange_plan(cparts: Sequence[Any], keys: Sequence[str], p: int
+                   ) -> Optional[Tuple]:
+    """The host half of :func:`exchange_batches` before the send buffer:
+    (each column's (data, validity) a source, rows a source, the key (the
+    index of the column the card hashes, or each source's partition ids
+    from ``operators.partition_ids``), names, kinds), or None where the
+    exchange stays host-side."""
     mesh = active_mesh()
-    if mesh is None or mesh.lanes != p or p < 2:
+    if mesh is None or mesh.lanes != p or p < 2 \
+            or p > _ops.EXCHANGE_MAX_P:
         return None
     from ..columnar import operators as O
-    from ..columnar.batch import Column, ColumnBatch, pow2_len
     schema: Optional[Tuple] = None
     for b in cparts:
         if not len(b):
@@ -514,63 +516,88 @@ def exchange_batches(cparts: Sequence[Any], keys: Sequence[str], p: int
         elif sig != schema:
             _FALLBACKS.inc()
             return None
-    if schema is None:
+    if not schema:
         return None                      # all partitions empty: host path
-    counts = np.zeros((p, p), dtype=np.int64)
-    orders: List[Optional[np.ndarray]] = []
-    moved = 0
-    for i, b in enumerate(cparts):
-        if not len(b):
-            orders.append(None)
-            continue
-        pid = O.partition_ids(b, keys, p)
-        moved += int((pid != i).sum())
-        orders.append(np.argsort(pid, kind="stable"))
-        counts[i] = np.bincount(pid, minlength=p)
-    cap = pow2_len(int(counts.max()))
-    if cap == 0:
-        return None
     names = [nm for nm, _kd in schema]
     kinds = dict(schema)
+    rows = [len(b) for b in cparts]
     ref = next(b for b in cparts if len(b))
-    send: List[np.ndarray] = []
+    cols = []
     for nm in names:
         dt0 = ref.columns[nm].data.dtype
-        data_s = np.zeros((p, p, cap), dtype=dt0)
-        valid_s = np.zeros((p, p, cap), dtype=bool)
-        for i, b in enumerate(cparts):
-            if not len(b):
-                continue
-            col = b.columns[nm]
-            d_srt = col.data[orders[i]]
-            v_srt = col.valid[orders[i]]
-            offs = np.concatenate([[0], np.cumsum(counts[i])])
-            for j in range(p):
-                a, z = int(offs[j]), int(offs[j + 1])
-                data_s[i, j, :z - a] = d_srt[a:z]
-                valid_s[i, j, :z - a] = v_srt[a:z]
-        send.extend((data_s, valid_s))
-    note_shape("spmd_exchange", mesh_key(mesh), cap, _dt(send))
-    recv = _ops.exchange_planes(send, p)
-    _record_dispatch("spmd_exchange", h2d=send, d2h=recv)
-    _note_spmd(mesh, p)
-    _EXCH_ROWS.inc(moved)
+        empty = (np.zeros(0, dt0), np.zeros(0, bool))
+        cols.append([(b.columns[nm].data, b.columns[nm].valid) if len(b)
+                     else empty for b in cparts])
+    # one int64 or bool key column, every row valid: hashed on the card as
+    # partition_ids hashes it (hash_partition_array); any other key takes
+    # the host's ids
+    k = keys[0] if len(keys) == 1 else None
+    if k in kinds and kinds[k] in ("i64", "bool") and all(
+            b.columns[k].valid[:len(b)].all() for b in cparts if len(b)):
+        key: Any = names.index(k)
+    else:
+        key = [O.partition_ids(b, keys, p) if len(b)
+               else np.zeros(0, np.int64) for b in cparts]
+    return cols, rows, key, names, kinds
+
+
+def _exchange_views(host: np.ndarray, lay: Any, names: Sequence[str],
+                    kinds: Dict[str, str]) -> Tuple[List[Any], int]:
+    """(each destination's ColumnBatch, rows moved) from the received
+    buffer: every column a numpy view of it."""
+    from ..columnar.batch import Column, ColumnBatch
+    counts, got = _ops.received(host, lay)
+    per_dest = counts.sum(axis=0)
     out: List[Any] = []
-    for j in range(p):
-        n_j = int(counts[:, j].sum())
-        if n_j == 0:
+    a = 0
+    for j in range(lay.p):
+        z = a + int(per_dest[j])
+        if z == a:
             out.append(ColumnBatch({}, 0))
             continue
-        cols: Dict[str, Column] = {}
-        for c_idx, nm in enumerate(names):
-            recv_d = recv[2 * c_idx]
-            recv_v = recv[2 * c_idx + 1]
-            data = np.concatenate(
-                [recv_d[j, i, :counts[i, j]] for i in range(p)])
-            valid = np.concatenate(
-                [recv_v[j, i, :counts[i, j]] for i in range(p)])
-            cols[nm] = Column(kinds[nm], data, valid, None)
-        out.append(ColumnBatch(cols, n_j))
+        out.append(ColumnBatch(
+            {nm: Column(kinds[nm], d[a:z], v[a:z], None)
+             for nm, (d, v) in zip(names, got)}, z - a))
+        a = z
+    return out, lay.n - int(np.trace(counts))
+
+
+def exchange_batches(cparts: Sequence[Any], keys: Sequence[str], p: int
+                     ) -> Optional[Tuple[List[Any], int]]:
+    """Hash-repartition ColumnBatches across the mesh's lanes with one
+    exchange dispatch (MToNPartitioningConnector).  Placement and row
+    order are bit-identical to the host bucketing path (same
+    ``partition_ids`` hash; destination j receives source 0's rows bound
+    for j, then source 1's, ..., each in their order).  The sources' rows
+    go up as they are, in one buffer with the key or the host's partition
+    ids, and the card partitions them (``kernels/spmd_ops``); each
+    destination's columns are views of the one buffer that comes back.
+    Returns (batches, rows moved), or None when the exchange must stay
+    host-side: lanes != partition count, fewer than 2 or more than
+    ``EXCHANGE_MAX_P`` partitions, schema drift across partitions, or
+    non-numeric (string/obj) columns whose dictionary codes are
+    partition-local."""
+    plan = _exchange_plan(cparts, keys, p)
+    if plan is None:
+        return None
+    from ..columnar.batch import pow2_len
+    cols, rows, key, names, kinds = plan
+    mesh = active_mesh()
+    stage, lay = _ops.stage_exchange(cols, rows, key, p)
+    if lay.key_kind == _ops.XK_PID:
+        _HOST_PIDS.inc()
+    note_shape("spmd_exchange", mesh_key(mesh), pow2_len(lay.n),
+               tuple(str(c[0]) for c in lay.cols), lay.key_kind)
+    dev = target()
+    if dev.type == "cuda":
+        recv = _ops.exchange_cuda(stage.to(dev, non_blocking=True), lay)
+    else:
+        recv = _ops.exchange_plain(stage, lay)
+    host = _ops.download(recv)
+    _record_dispatch("spmd_exchange", h2d=[stage.numpy()], d2h=[host])
+    _note_spmd(mesh, p)
+    out, moved = _exchange_views(host, lay, names, kinds)
+    _EXCH_ROWS.inc(moved)
     return out, moved
 
 

@@ -267,3 +267,141 @@ def mesh_lifecycles(pkg, seed, check, n_cases=12):
             ds.crash_and_recover()
         check(ds, relational_plan(pkg.A, rng, "agg"))
     return ds
+
+
+# ---------------------------------------------------------------------------
+# many range predicates: 9 and 17 predicate columns reach K2 and A6
+# ---------------------------------------------------------------------------
+
+WIDE_FIELDS = 19             # f0 (indexed) .. f18
+
+
+def wide_dataset(pkg, n=600, parts=4, threshold=64, seed=11):
+    """``n`` seeded records of ``WIDE_FIELDS`` numeric fields (every third
+    a DOUBLE, the rest INT64) in ``parts`` partitions, flushed every
+    ``threshold`` inserts, never merged, with a B+-tree index on f0.
+    Each partition keeps more than 32 survivors of every plan of
+    :func:`wide_plans` at the default ``n``: a float64 sum over 17 to 31
+    rows is a separate open fault (ROADMAP, section C.1), which the
+    strict xfail test ``test_wide_range_index_chain_small_partitions``
+    shows at ``n=160``."""
+    import numpy as np
+    adm = pkg.adm
+    rtype = adm.RecordType("WideT", (adm.Field("id", adm.INT64),) + tuple(
+        adm.Field(f"f{j}", adm.DOUBLE if j % 3 == 2 else adm.INT64)
+        for j in range(WIDE_FIELDS)), open=True)
+    ds = pkg.dsm.PartitionedDataset(
+        "W", rtype, "id", num_partitions=parts, flush_threshold=threshold,
+        merge_policy=pkg.lsm.TieredMergePolicy(k=99))
+    ds.create_index("f0")
+    rng = np.random.default_rng(seed)
+    ints = rng.integers(0, 100, (n, WIDE_FIELDS))
+    dbls = rng.standard_normal((n, WIDE_FIELDS)) * 100.0
+    for i in range(n):
+        ds.insert({"id": i, **{
+            f"f{j}": float(dbls[i, j]) if j % 3 == 2 else int(ints[i, j])
+            for j in range(WIDE_FIELDS)}})
+    return ds
+
+
+def _wide_range(j):
+    return (-250.0, 250.0) if j % 3 == 2 else (2, 97)
+
+
+def wide_plans(A, k):
+    """Aggregates over selects that hand the kernels ``k`` predicate
+    columns: ``scan`` ranges over f1 .. fk (none indexed) and
+    ``skip_index`` over f0 .. f(k-1) with the skip-index hint, both exact
+    (K2 fuses the select); ``index_chain`` probes f0's index and validates
+    f1 .. fk (A6, or the per-operator path's K2)."""
+    aggs = {"c": ("count", "*"), "s": ("sum", "f1"), "mn": ("min", "f2"),
+            "av": ("avg", "f5"), "mx": ("max", "f3")}
+
+    def sel(fields, **kw):
+        ranges = {f"f{j}": _wide_range(j) for j in fields}
+
+        def pred(r):
+            return all(lo <= r[f] <= hi for f, (lo, hi) in ranges.items())
+        return A.select(A.scan("W"), pred=pred, fields=sorted(ranges),
+                        ranges=ranges, ranges_exact=True, **kw)
+    return {
+        "scan": A.aggregate(sel(range(1, k + 1)), aggs),
+        "skip_index": A.aggregate(sel(range(k), hints=["skip-index"]),
+                                  aggs),
+        "index_chain": A.aggregate(sel(range(k + 1)), aggs)}
+
+
+# ---------------------------------------------------------------------------
+# the exchange: seeded partition batches for any package's ColumnBatch
+# ---------------------------------------------------------------------------
+
+EXCHANGE_CASES = ("hash", "empty_source", "empty_dest", "one_dest",
+                  "invalid_keys", "two_keys", "f64_key", "bool_key")
+# cases whose key the card hashes (one int64 or bool column, every row
+# valid); the others take the host's partition ids
+EXCHANGE_HASHED = ("hash", "empty_source", "empty_dest", "one_dest",
+                   "bool_key")
+_EXCHANGE_SIZES = (37, 129, 64, 1, 200, 3, 77, 65)
+
+
+def _keys_bound_for(rng, p, n, keep):
+    """``n`` int64 keys whose partition (hash_partition_array) passes
+    ``keep``."""
+    import numpy as np
+    out = []
+    while len(out) < n:
+        k = rng.integers(-(1 << 62), 1 << 62, 4 * n + 8, dtype=np.int64)
+        h = (k.astype(np.uint64) * np.uint64(11400714819323198485)) \
+            >> np.uint64(40)
+        out.extend(k[keep((h % np.uint64(p)).astype(np.int64))].tolist())
+    return np.asarray(out[:n], np.int64)
+
+
+def exchange_parts(Column, ColumnBatch, p, case, seed=0):
+    """(batches of the ``p`` sources, partition keys) for an exchange
+    case: ``hash`` an int64 key every row valid (hashed on the card), a
+    float64 column with NaN, -0.0, +0.0 and infinities and a bool column
+    with invalid rows; ``empty_source`` source 1 has no rows;
+    ``empty_dest`` no row is bound for the last partition; ``one_dest``
+    every row for partition 0; ``invalid_keys`` invalid key rows (which
+    ``partition_ids`` refuses with a KeyError in both packages);
+    ``two_keys`` a two-column key and ``f64_key`` a float64 key of
+    integral and fractional values and -0.0 (the host's partition ids);
+    ``bool_key`` the bool column, every row valid, as the key."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 97 * p + EXCHANGE_CASES.index(case))
+    sizes = list(_EXCHANGE_SIZES[:p])
+    if case == "empty_source":
+        sizes[1] = 0
+    parts = []
+    for n in sizes:
+        if case == "empty_dest":
+            k = _keys_bound_for(rng, p, n, lambda q: q != p - 1)
+        elif case == "one_dest":
+            k = _keys_bound_for(rng, p, n, lambda q: q == 0)
+        else:
+            k = rng.integers(-(1 << 62), 1 << 62, n, dtype=np.int64)
+            k[: n // 3] = rng.integers(0, 50, n // 3)
+        kv = np.ones(n, bool)
+        if case == "invalid_keys":
+            kv = rng.random(n) < 0.8
+        x = rng.standard_normal(n) * 1e3
+        x[rng.random(n) < 0.1] = np.nan
+        x[rng.random(n) < 0.1] = -0.0
+        x[rng.random(n) < 0.1] = 0.0
+        x[rng.random(n) < 0.05] = -np.inf
+        f = rng.random(n) < 0.5
+        y = np.where(rng.random(n) < 0.5, rng.integers(-5, 5, n) * 1.0,
+                     rng.standard_normal(n) / 7.0)
+        y[rng.random(n) < 0.1] = -0.0
+        fv = np.ones(n, bool) if case == "bool_key" else rng.random(n) < 0.9
+        parts.append(ColumnBatch({
+            "k": Column("i64", k, kv, None),
+            "b": Column("i64", rng.integers(0, 7, n, dtype=np.int64),
+                        np.ones(n, bool), None),
+            "x": Column("f64", x, rng.random(n) < 0.9, None),
+            "f": Column("bool", f, fv, None),
+            "y": Column("f64", y, np.ones(n, bool), None)}, n))
+    keys = {"two_keys": ("k", "b"), "f64_key": ("y",),
+            "bool_key": ("f",)}.get(case, ("k",))
+    return parts, keys

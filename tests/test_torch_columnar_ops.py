@@ -507,3 +507,96 @@ def test_k2_grid_rule(n, want):
     """K2's grid, and so its fold order, is a function of n alone: one
     8-row run a thread of 256, capped at the scratch's 264 blocks."""
     assert PK.agg_blocks(n) == want
+
+
+# ---------------------------------------------------------------------------
+# more than 8 predicate columns (K2, stacked K2 and A6 fold the ones past
+# slot 7 into slot 7's validity with K1)
+# ---------------------------------------------------------------------------
+
+def _wide_preds(rng, k, n):
+    """``k`` int64 and float64 predicate columns (NaN in the floats) of
+    which the conjunction keeps some rows."""
+    out = []
+    for j in range(k):
+        if j % 3 == 2:
+            x = rng.normal(0.0, 1.0, n)
+            x[rng.random(n) < 0.02] = np.nan
+            out.append((x, rng.random(n) < 0.97, -2.0, None))
+        else:
+            x = rng.integers(0, 100, n, dtype=np.int64)
+            out.append((x, rng.random(n) < 0.97, 3, 98))
+    return out
+
+
+@pytest.mark.parametrize("k", [9, 17])
+@pytest.mark.parametrize("n", [37, 4099])
+def test_fused_filter_aggregate_wide_matches_x64(RK, k, n):
+    rng = np.random.default_rng(k * n)
+    preds = _wide_preds(rng, k, n)
+    aggs = [(preds[0][0], preds[0][1]), (rng.normal(size=n),
+                                         rng.random(n) < 0.9)]
+    got = PK.fused_filter_aggregate(preds, aggs, n)
+    assert got["count"] > 0
+    _assert_agg_equal(got, RK.fused_filter_aggregate(preds, aggs, n,
+                                                     force_pallas=False))
+
+
+@pytest.mark.xfail(strict=True, reason=(
+    "open fault, ROADMAP.md section C.1: a float64 sum over 17 to 31 "
+    "rows differs from the reference's in its last bits"))
+def test_float64_sum_of_17_to_31_rows_matches_x64_bits(RK):
+    """K2's float64 sum over 17-31 rows, bit for bit against the
+    reference's x64 path, which pads them to 32 and masks the padding.
+    ``_assert_agg_equal`` allows sums 1e-12 apart, so it cannot see this;
+    strict, so the fault's repair turns it into a failure to flip."""
+    differ = []
+    for n in (17, 20, 24, 29, 31):
+        for seed in range(4):
+            x = np.random.default_rng(seed).standard_normal(n) * 100.0
+            aggs = [(x, np.ones(n, bool))]
+            got = PK.fused_filter_aggregate([], aggs, n)["sums"][0]
+            ref = RK.fused_filter_aggregate([], aggs, n,
+                                            force_pallas=False)["sums"][0]
+            if got != ref:
+                differ.append((n, seed, got, ref))
+    assert not differ, differ
+
+
+@pytest.mark.parametrize("k", [1, 8, 9, 17])
+@pytest.mark.parametrize("rows", [0, 3])
+def test_fold_extra_preds_keeps_the_conjunction(k, rows):
+    """``fold_extra_preds`` with the plain K1 (stacked K1 for ``rows`` > 0)
+    as its mask: at most 8 slots, slots 0-6 the columns themselves, and
+    the slots' conjunction, and so K2's plain result, equal to that of
+    all ``k`` columns; up to 8 columns nothing is folded."""
+    from repro_torch.kernels import spmd_ops as SO
+    rng = np.random.default_rng(k + rows)
+    n = 1000
+    cols = []
+    for x, v, lo, hi in _wide_preds(rng, k, n * max(rows, 1)):
+        x, v = torch.from_numpy(x), torch.from_numpy(v)
+        blo, bhi = PK._prep_bounds(x.numpy(), lo, hi)
+        if rows:
+            cols.append((x.view(rows, n), v.view(rows, n),
+                         np.full(rows, blo), np.full(rows, bhi)))
+        else:
+            cols.append((x, v, blo, bhi))
+    if rows:
+        def mask(c):
+            return SO.range_mask_rows_plain(c, rows, n)
+    else:
+        def mask(c):
+            return PK.range_mask_plain(c, n)
+    folded = PK.fold_extra_preds(cols, mask)
+    assert len(folded) == min(k, 8)
+    assert all(f is c for f, c in zip(folded[:7], cols))
+    if k <= 8:
+        assert all(f is c for f, c in zip(folded, cols))
+    assert torch.equal(mask(folded), mask(cols))
+    assert mask(cols).any()
+    if not rows:
+        agg = [(cols[0][0], cols[0][1], None, None)]
+        dev = torch.device("cpu")
+        assert PK.filter_aggregate_plain(folded, agg, n, dev) == \
+            PK.filter_aggregate_plain(cols, agg, n, dev)

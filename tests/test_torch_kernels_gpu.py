@@ -870,14 +870,78 @@ def test_stacked_filter_aggregate_equals_loop_kernel(dev, rows, n, preds,
         assert np.array_equal(loop, raw[i]), i
 
 
-@pytest.mark.parametrize("p,cap", [(2, 1), (2, 64), (4, 3), (4, 1 << 14),
-                                   (8, 1000)])
-def test_exchange_kernel(dev, p, cap):
-    """The exchange against its plain version: 16-byte blocks and byte
-    blocks (bool planes, odd capacities)."""
-    r = SC.run_case(SC.exchange_case(p, cap, seed=p * cap, dev=dev),
-                    timed=False)
-    assert r["ok"], r
+def _exchange_on_card(dev, cparts, keys, p):
+    """The exchange of ``cparts`` staged as ``exchange_batches`` stages it,
+    on the card and by its plain version on the same send buffer: (the
+    card's received buffer, the plain one's, the layout)."""
+    from repro_torch.kernels import spmd_ops as SO
+    from repro_torch.runtime import spmd as SP
+    with SP.use_partition_mesh(p):
+        cols, rows, key, _names, _kinds = SP._exchange_plan(cparts, keys, p)
+    stage, lay = SO.stage_exchange(cols, rows, key, p)
+    send = stage.to(dev, non_blocking=True)
+    before = SO.exchange_cuda.launches
+    got = SO.exchange_cuda(send, lay)
+    assert SO.exchange_cuda.launches == before + 1
+    return got, SO.exchange_plain(send, lay), lay
+
+
+@pytest.mark.parametrize("case", ["hash", "empty_source", "empty_dest",
+                                  "one_dest", "two_keys", "f64_key",
+                                  "bool_key"])
+@pytest.mark.parametrize("p", [2, 3, 4, 8])
+def test_exchange_kernel(dev, p, case):
+    """The exchange against its plain version, byte for byte with equal
+    counts, at the CPU tests' cases (``_torch_ref.exchange_parts``: an
+    empty source, a destination that receives nothing, every row to one
+    destination, keys hashed on the card (int64, bool) or by the host
+    (two keys, float64), float64 with NaN and -0.0, bool columns); and
+    ``exchange_batches`` on the card gives the CPU run's batches."""
+    from _torch_ref import exchange_parts, port_namespace
+    port = port_namespace()
+    cparts, keys = exchange_parts(port.Column, port.ColumnBatch, p, case)
+    got, want, lay = _exchange_on_card(dev, cparts, keys, p)
+    assert SC.exchange_compare(got, want, lay) == 0.0
+    out = {}
+    for name in ("cuda", "cpu"):
+        repro_torch.set_device(name)
+        with port.SP.use_partition_mesh(p):
+            out[name] = port.SP.exchange_batches(cparts, keys, p)
+    repro_torch.set_device("cuda")
+    assert out["cuda"][1] == out["cpu"][1]
+    for a, b in zip(out["cuda"][0], out["cpu"][0]):
+        assert len(a) == len(b) and sorted(a.columns) == sorted(b.columns)
+        for nm in a.columns:
+            assert a.columns[nm].data.tobytes() == b.columns[nm].data.tobytes()
+            assert a.columns[nm].valid.tobytes() == \
+                b.columns[nm].valid.tobytes()
+
+
+@pytest.mark.parametrize("p,sizes,key", [
+    (4, (70_001, 0, 65_537, 3), "hash"),       # odd starts: row-by-row moves
+    (4, (65_536, 65_536, 64, 128), "pids"),    # whole 64-row groups
+    (8, (1, 2, 3, 5, 8, 13, 21, 34), "hash"),
+    (33, tuple(range(1, 34)), "pids"),         # a lane count past 32
+    (1000, (300,) * 1000, "hash"),             # 6 warps a block
+    (4096, (7,) * 4096, "pids")])              # one warp a block
+def test_exchange_kernel_sizes(dev, p, sizes, key):
+    """Many tiles, sources that start at odd rows, any lane count the
+    kernel's counters hold (warps a block and rows a tile follow p): the
+    kernel against its plain version, byte for byte."""
+    import numpy as np
+    from repro_torch.kernels import spmd_ops as SO
+    rng = np.random.default_rng(p + len(sizes))
+    cols = [[], [], []]
+    for n in sizes:
+        cols[0].append((rng.integers(-(1 << 62), 1 << 62, n),
+                        np.ones(n, bool)))
+        cols[1].append((rng.standard_normal(n), rng.random(n) < 0.8))
+        cols[2].append((rng.random(n) < 0.5, rng.random(n) < 0.9))
+    k = 0 if key == "hash" else [rng.integers(0, p, n) for n in sizes]
+    stage, lay = SO.stage_exchange(cols, list(sizes), k, p)
+    send = stage.to(dev, non_blocking=True)
+    got = SO.exchange_cuda(send, lay)
+    assert SC.exchange_compare(got, SO.exchange_plain(send, lay), lay) == 0.0
 
 
 @pytest.mark.parametrize("op", ["sum", "min", "max"])
@@ -894,6 +958,115 @@ def test_merge_kernel(dev, op, rows, m, dtype):
 def test_rung_shapes(dev, i):
     r = SC.run_case(SC.rung_cases(dev)[i], timed=False)
     assert r["ok"], r
+
+
+# ---------------------------------------------------------------------------
+# more than 8 predicate columns: K2, stacked K2 and A6 take predicates 7,
+# 8, ... ANDed by K1 (stacked K1) into slot 7's validity
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("i", range(6))
+def test_wide_pred_shapes(dev, i):
+    r = SC.run_case(SC.wide_pred_cases(dev)[i], timed=False)
+    assert r["ok"] and r["max_abs_err"] == 0.0, r
+
+
+def _launches():
+    from repro_torch.kernels import columnar_ops as CO
+    from repro_torch.kernels import spmd_ops as SO
+    return (CO.range_mask_cuda.launches, CO.filter_aggregate_cuda.launches,
+            SO.range_mask_rows_cuda.launches)
+
+
+@pytest.mark.parametrize("n", [1, 37, 70_001, (1 << 19) + 3])
+@pytest.mark.parametrize("kinds", [SC.WIDE9[:8], SC.WIDE9, SC.WIDE17])
+def test_filter_aggregate_wide_preds(dev, n, kinds):
+    """K2 with 8, 9 and 17 predicate columns against its plain version,
+    bit for bit (float64 sums in the reference's order, NaN in a
+    predicate column), and its launches: one K1 first past 8 columns,
+    none up to 8."""
+    case = SC.k2_case(n, kinds, ["id", "f64n", "code"], seed=n + len(kinds),
+                      dev=dev)
+    r = SC.run_case(case, timed=False)
+    assert r["ok"] and r["max_abs_err"] == 0.0, r
+    before = _launches()
+    case["run"]()
+    after = _launches()
+    assert (after[0] - before[0], after[1] - before[1]) == \
+        (int(len(kinds) > 8), 1)
+
+
+@pytest.mark.parametrize("rows", [1, 4])
+@pytest.mark.parametrize("n", [37, 4096, 1 << 19])
+@pytest.mark.parametrize("kinds", [SC.WIDE9, SC.WIDE17])
+def test_stacked_filter_aggregate_wide_preds(dev, rows, n, kinds):
+    """Stacked K2 with 9 and 17 predicate columns against its plain
+    version (float64 sums bit for bit), each row bit for bit the loop
+    K2's on that row, one stacked K1 launch first."""
+    import numpy as np
+    from repro_torch.kernels import columnar_ops as CO
+    from repro_torch.kernels import spmd_ops as SO
+    case = SC.k2_rows_case(rows, n, kinds, ["id", "f64n"], seed=n + rows,
+                           dev=dev)
+    r = SC.run_case(case, timed=False)
+    assert r["ok"], r
+    before = _launches()
+    raw, _mask = SO.filter_aggregate_rows(case["pcols"], case["acols"],
+                                          rows, n)
+    assert _launches()[2] - before[2] == 1
+    for i in range(rows):
+        pcols = [(x[i], v[i], lo[i], hi[i])
+                 for x, v, lo, hi in case["pcols"]]
+        acols = [(x[i], v[i], None, None) for x, v in case["acols"]]
+        loop = CO.filter_aggregate_cuda(pcols, acols, n, dev).cpu().numpy()
+        assert np.array_equal(loop, raw[i]), i
+
+
+@pytest.mark.parametrize("rows", [1, 4])
+@pytest.mark.parametrize("aggs", [[], ["id", "f64n", "code"]])
+@pytest.mark.parametrize("kinds", [SC.WIDE9, SC.WIDE17])
+def test_fused_chain_wide_preds(dev, rows, aggs, kinds):
+    """A6 with 9 and 17 validate ranges in mask and aggregate mode
+    against its plain version, a padding row at R = 4, one stacked K1
+    launch before the dispatch."""
+    case = SC.a6_case(rows, 70_001, 3, 2, kinds, aggs, seed=rows + len(aggs),
+                      dev=dev, empty_last=rows > 1)
+    r = SC.run_case(case, timed=False)
+    assert r["ok"], r
+    before = _launches()
+    case["run"]()
+    assert _launches()[2] - before[2] == 1
+
+
+def test_wide_range_queries_on_card_equal_cpu(dev):
+    """Aggregates that hand K2 and A6 9 and 17 predicate columns
+    (``_torch_ref.wide_plans``: scan, skip-index, index chain), with the
+    plan cache on and off, in the loop and at 4 lanes: on the card the
+    rows and the engines' accounting of the same runs on the CPU, which
+    the CPU tests hold against the reference."""
+    from _torch_ref import canon, port_namespace, wide_dataset, wide_plans
+    port = port_namespace()
+    got = {}
+    for name in ("cuda", "cpu"):
+        repro_torch.set_device(name)
+        ds = {"W": wide_dataset(port)}
+        res = []
+        for cache in (False, True):
+            port.PC.set_enabled(cache)
+            for k in (9, 17):
+                for plan in wide_plans(port.A, k).values():
+                    for mesh in (None, 4):
+                        rows, ex = port.run_query(plan, ds, vectorize=True,
+                                                  mesh=mesh)
+                        st = ex.stats
+                        res.append((canon(rows), st.fallback_reasons,
+                                    st.rows_fallback,
+                                    st.plan_cache_hits + st.plan_cache_misses,
+                                    st.spmd_dispatches))
+        got[name] = res
+    port.PC.set_enabled(True)
+    repro_torch.set_device("cuda")
+    assert got["cuda"] == got["cpu"]
 
 
 def test_rungs_on_card_equal_cpu(dev):

@@ -28,7 +28,8 @@ from repro_torch.kernels import chain_ops as CH  # noqa: E402
 from repro_torch.kernels import columnar_ops as P_K  # noqa: E402
 
 from _torch_ref import (canon, dataset, port_namespace,  # noqa: E402
-                        reference_namespace, reference_x64)
+                        reference_namespace, reference_x64, wide_dataset,
+                        wide_plans)
 
 PORT = port_namespace()
 
@@ -144,6 +145,34 @@ def test_aggregate_with_residual_declines(REF, chain_datasets):
     assert canon(rows_p) == canon(rows_r)
     assert ex_p.stats.plan_cache_hits + ex_p.stats.plan_cache_misses == 0
     assert ex_r.stats.plan_cache_hits + ex_r.stats.plan_cache_misses == 0
+
+
+@pytest.fixture(scope="module")
+def wide_datasets(REF):
+    return {"W": wide_dataset(PORT)}, {"W": wide_dataset(REF)}
+
+
+@pytest.mark.parametrize("plan", ["scan", "skip_index", "index_chain"])
+@pytest.mark.parametrize("k", [9, 17])
+def test_wide_range_aggregates_agree_with_reference(REF, wide_datasets, k,
+                                                    plan):
+    """``k`` predicate columns with the plan cache on: the index chain
+    (``k`` validate ranges) fuses into A6 in every partition as the
+    reference's chain does, counted by the plan cache alike, and the
+    scans fuse into K2; rows by exact repr and the engines' accounting
+    equal the reference's, cold and warm."""
+    port, ref = wide_datasets
+    pp, rp = wide_plans(PORT.A, k)[plan], wide_plans(REF.A, k)[plan]
+    for rep in ("cold", "warm"):
+        rows_p, ex_p = PORT.run_query(pp, port, vectorize=True)
+        rows_r, ex_r = REF.run_query(rp, ref, vectorize=True)
+        assert canon(rows_p) == canon(rows_r), rep
+        for key in STATS:
+            assert getattr(ex_p.stats, key) == getattr(ex_r.stats, key), \
+                (rep, key)
+        fused = ex_p.stats.plan_cache_hits + ex_p.stats.plan_cache_misses
+        assert fused == (4 if plan == "index_chain" else 0), rep
+    assert ex_p.stats.h2d_bytes == 0 and ex_p.stats.kernel_retraces == 0
 
 
 # ---------------------------------------------------------------------------

@@ -40,6 +40,7 @@ from repro_torch.storage.carry import dataset_from_reference  # noqa: E402
 
 from _torch_doubles import (DOUBLE_SIZES, double_dataset,  # noqa: E402
                             double_plans)
+from _torch_ref import canon, wide_dataset, wide_plans  # noqa: E402
 
 PORT = types.SimpleNamespace(A=P_A, adm=P_adm, fn=P_fn, lsm=P_lsm,
                              dsm=P_dsm, run_query=P_q.run_query, ts=P_ts)
@@ -231,6 +232,55 @@ def test_index_paths_launch_every_kernel_class(tinysocial):
     after = P_obs.snapshot()
     for k, v in before.items():
         assert after.get(f"kernel.{k}.dispatches", 0) > v, k
+
+
+# ---------------------------------------------------------------------------
+# 9 and 17 predicate columns: K2 takes any number, as the reference does
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def wide_datasets(REF):
+    return {"W": wide_dataset(PORT)}, {"W": wide_dataset(REF)}
+
+
+@pytest.mark.parametrize("plan", ["scan", "skip_index", "index_chain"])
+@pytest.mark.parametrize("k", [9, 17])
+def test_wide_range_aggregates_agree_with_reference(REF, wide_datasets, k,
+                                                    plan):
+    """Aggregates over exact selects that hand K2 (scan, skip-index) or
+    the index path's validate step ``k`` predicate columns: rows by exact
+    repr and the engines' accounting equal the reference's, every row
+    vectorized, K2 dispatched."""
+    port, ref = wide_datasets
+    key = "kernel.fused_filter_aggregate.dispatches"
+    k0 = P_obs.snapshot().get(key, 0)
+    rows_p, ex_p = PORT.run_query(wide_plans(PORT.A, k)[plan], port,
+                                  vectorize=True)
+    rows_r, ex_r = REF.run_query(wide_plans(REF.A, k)[plan], ref,
+                                 vectorize=True)
+    assert canon(rows_p) == canon(rows_r)
+    for stat in STAT_KEYS:
+        assert getattr(ex_p.stats, stat) == getattr(ex_r.stats, stat), stat
+    assert ex_p.stats.rows_fallback == 0 and rows_p[0]["c"] > 0
+    assert P_obs.snapshot().get(key, 0) > k0
+
+
+@pytest.mark.xfail(strict=True, reason=(
+    "open fault, ROADMAP.md section C.1: a float64 sum over 17 to 31 "
+    "rows differs from the reference's in its last bits"))
+@pytest.mark.parametrize("k", [9, 17])
+def test_wide_range_index_chain_small_partitions(REF, k):
+    """The wide index-chain aggregate over 160 records (the tests above
+    use 600): the per-operator path's K2 sums gathered batches of 17-31
+    survivors, which the reference pads to 32 and XLA sums in another
+    order.  Strict, so the fault's repair turns it into a failure to
+    flip."""
+    port, ref = wide_dataset(PORT, n=160), wide_dataset(REF, n=160)
+    rows_p, _ = PORT.run_query(wide_plans(PORT.A, k)["index_chain"],
+                               {"W": port}, vectorize=True)
+    rows_r, _ = REF.run_query(wide_plans(REF.A, k)["index_chain"],
+                              {"W": ref}, vectorize=True)
+    assert canon(rows_p) == canon(rows_r)
 
 
 # ---------------------------------------------------------------------------

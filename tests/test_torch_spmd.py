@@ -33,8 +33,10 @@ jax = pytest.importorskip("jax")
 import repro_torch  # noqa: E402
 from repro_torch.kernels import columnar_ops as P_K  # noqa: E402
 
-from _torch_ref import (canon, dataset, port_namespace,  # noqa: E402
-                        reference_namespace, reference_x64)
+from _torch_ref import (EXCHANGE_CASES, EXCHANGE_HASHED,  # noqa: E402
+                        canon, dataset, exchange_parts, port_namespace,
+                        reference_namespace, reference_x64, wide_dataset,
+                        wide_plans)
 
 PORT = port_namespace()
 SP = PORT.SP
@@ -145,6 +147,37 @@ def test_lanes_equal_the_loop(REF, mesh_datasets, name, lanes):
     assert ex_w.stats.h2d_bytes == exch
     assert (exch > 0) == (name == "grouped" and lanes == 4)
     assert ex_w.stats.kernel_retraces == 0
+
+
+@pytest.fixture(scope="module")
+def wide_datasets(REF):
+    return {"W": wide_dataset(PORT)}, {"W": wide_dataset(REF)}
+
+
+@pytest.mark.parametrize("plan", ["scan", "skip_index", "index_chain"])
+@pytest.mark.parametrize("k", [9, 17])
+def test_wide_range_aggregates_on_the_mesh(REF, wide_datasets, k, plan):
+    """``k`` predicate columns on the partition mesh: at one lane rows and
+    accounting equal the reference's one-device mesh; at 4 lanes one
+    stacked dispatch (stacked K2, or stacked A6 for the index chain)
+    gives the loop's rows and the reference's loop's, and a warm repeat
+    ships and retraces nothing."""
+    port, ref = wide_datasets
+    pp, rp = wide_plans(PORT.A, k)[plan], wide_plans(REF.A, k)[plan]
+    rows_p, ex_p = PORT.run_query(pp, port, vectorize=True, mesh=1)
+    rows_r, ex_r = REF.run_query(rp, ref, vectorize=True, mesh=1)
+    assert canon(rows_p) == canon(rows_r)
+    for key in STATS:
+        assert getattr(ex_p.stats, key) == getattr(ex_r.stats, key), key
+    rows_l, ex_l = PORT.run_query(pp, port, vectorize=True)
+    rows_rl, _ = REF.run_query(rp, ref, vectorize=True)
+    for rep in ("cold", "warm"):
+        rows_m, ex_m = PORT.run_query(pp, port, vectorize=True, mesh=4)
+        assert canon(rows_m) == canon(rows_l) == canon(rows_rl), rep
+        assert ex_m.stats.fallback_reasons == ex_l.stats.fallback_reasons
+        assert (ex_m.stats.spmd_dispatches, ex_m.stats.spmd_partitions) \
+            == (1, 4), rep
+    assert ex_m.stats.h2d_bytes == 0 and ex_m.stats.kernel_retraces == 0
 
 
 # ---------------------------------------------------------------------------
@@ -332,28 +365,131 @@ def _num_batch(rng, n):
     }, n)
 
 
-@pytest.mark.parametrize("p", [2, 4])
-def test_exchange_matches_host_bucketing(p):
-    rng = np.random.default_rng(7)
-    sizes = [17, 0, 33, 9][:p]
-    cparts = [_num_batch(rng, n) for n in sizes]
-    host = _host_buckets(cparts, ("k",), p)
-    e0 = PORT.obs.snapshot().get("kernel.spmd_exchange.dispatches", 0)
+EXCHANGE_P = (2, 3, 4, 8)
+_REF_EXCHANGE = r"""
+import pickle, sys
+sys.path[:0] = [{tests!r}, {src!r}]
+from _torch_ref import EXCHANGE_CASES, exchange_parts, reference_x64
+out = {{}}
+with reference_x64():
+    from repro.columnar.batch import Column, ColumnBatch
+    from repro.runtime import spmd
+    for p in {ps!r}:
+        for case in EXCHANGE_CASES:
+            parts, keys = exchange_parts(Column, ColumnBatch, p, case)
+            with spmd.use_partition_mesh(p):
+                try:
+                    batches, moved = spmd.exchange_batches(parts, keys, p)
+                except KeyError:
+                    out[(p, case)] = "KeyError"
+                    continue
+            out[(p, case)] = (moved, [
+                {{nm: (c.data[:len(b)], c.valid[:len(b)])
+                  for nm, c in b.columns.items()}} for b in batches])
+with open({path!r}, "wb") as fh:
+    pickle.dump(out, fh)
+"""
+
+
+@pytest.fixture(scope="module")
+def ref_exchanges(tmp_path_factory):
+    """The reference's ``exchange_batches`` on every exchange case, run in
+    a process of its own on 8 forced host devices (its exchange is an
+    ``all_to_all`` over a mesh of p devices): {(p, case): (moved, each
+    destination's {column: (data, valid)}), or the name of the error it
+    raised}."""
+    import os
+    import pickle
+    import subprocess
+    import sys
+    from pathlib import Path
+    tests = Path(__file__).resolve().parent
+    path = tmp_path_factory.mktemp("ref_exchange") / "out.pkl"
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=8")
+    code = _REF_EXCHANGE.format(tests=str(tests),
+                                src=str(tests.parent / "src"),
+                                ps=EXCHANGE_P, path=str(path))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    with open(path, "rb") as fh:
+        return pickle.load(fh)
+
+
+def _same_bits(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and \
+        a.tobytes() == b.tobytes()
+
+
+@pytest.mark.parametrize("case", EXCHANGE_CASES)
+@pytest.mark.parametrize("p", EXCHANGE_P)
+def test_exchange_matches_host_bucketing(ref_exchanges, p, case):
+    """The exchange against the host bucketing (``columnar/lower.py``) and
+    the reference's ``exchange_batches``, byte for byte (NaN, -0.0 and
+    invalid rows included): rows, order, ``moved``; one dispatch, whose
+    h2d and d2h bytes are the layout's buffers, the host-ids counter
+    moved only where the key is not hashed on the card, and a warm
+    repeat retraces nothing.  Invalid key rows: ``partition_ids`` raises,
+    in the host bucketing, the reference's exchange and the port's."""
+    cparts, keys = exchange_parts(PORT.Column, PORT.ColumnBatch, p, case)
+    if case == "invalid_keys":
+        assert ref_exchanges[(p, case)] == "KeyError"
+        with pytest.raises(KeyError):
+            _host_buckets(cparts, keys, p)
+        with SP.use_partition_mesh(p), pytest.raises(KeyError):
+            SP.exchange_batches(cparts, keys, p)
+        return
+    host = _host_buckets(cparts, keys, p)
+    key = "kernel.spmd_exchange."
+    s0 = PORT.obs.snapshot()
+    t0 = P_K.trace_count()
     with SP.use_partition_mesh(p):
-        got = SP.exchange_batches(cparts, ("k",), p)
+        got = SP.exchange_batches(cparts, keys, p)
+        s1 = PORT.obs.snapshot()
+        t1 = P_K.trace_count()
+        assert SP.exchange_batches(cparts, keys, p) is not None
+        plan = SP._exchange_plan(cparts, keys, p)
+    assert P_K.trace_count() == t1 >= t0
     assert got is not None
-    assert PORT.obs.snapshot()["kernel.spmd_exchange.dispatches"] == e0 + 1
+
+    def diff(name):
+        return s1.get(name, 0) - s0.get(name, 0)
+    lay = SP._ops.exchange_layout(plan[1], [c[0][0].dtype for c in plan[0]],
+                                  plan[2] if isinstance(plan[2], int)
+                                  else None, p)
+    assert diff(key + "dispatches") == 1
+    assert diff(key + "h2d_bytes") == lay.send_bytes
+    assert diff(key + "d2h_bytes") == lay.recv_bytes
+    hashed = case in EXCHANGE_HASHED
+    assert diff("mesh.exchange_host_pids") == (0 if hashed else 1)
+    assert isinstance(plan[2], int) == hashed
     out, moved = got
     assert moved == sum(
-        int((PORT.O.partition_ids(b, ("k",), p) != i).sum())
+        int((PORT.O.partition_ids(b, keys, p) != i).sum())
         for i, b in enumerate(cparts) if len(b))
+    ref_moved, ref_out = ref_exchanges[(p, case)]
+    assert moved == ref_moved
+    if case == "empty_dest":
+        assert len(out[p - 1]) == 0
+    if case == "one_dest":
+        assert all(len(out[j]) == 0 for j in range(1, p))
     for j in range(p):
-        assert len(out[j]) == len(host[j])
-        for nm in ("k", "v"):
+        assert len(out[j]) == len(host[j]) == len(
+            next(iter(ref_out[j].values()), ((),))[0])
+        if not len(out[j]):
+            continue
+        for nm in ("k", "b", "x", "f", "y"):
             a, b = out[j].columns[nm], host[j].columns[nm]
             n = len(out[j])
-            assert np.array_equal(a.data[:n], b.data[:n])
-            assert np.array_equal(a.valid[:n], b.valid[:n])
+            assert a.kind == b.kind
+            for got_a, want in ((a.data[:n], b.data[:n]),
+                                (a.valid[:n], b.valid[:n])):
+                assert _same_bits(got_a, want), (j, nm)
+            rd, rv = ref_out[j][nm]
+            assert _same_bits(a.data[:n], rd) and \
+                _same_bits(a.valid[:n], rv), (j, nm)
 
 
 def test_exchange_declines_string_schemas_and_other_lane_counts():
