@@ -890,12 +890,18 @@ def main() -> int:
     rung4_phase(ds, rec, main_rows)
     rung4_counts = selfcheck.launch_counts()
     a6_clears["rung4"] = a6.clears
+    k2s = selfcheck.KERNELS["filter_aggregate_stacked"]["wrapper"]
+    k2s_first = k2s.launches_first
     print(f"rung4: launches {json.dumps(rung4_counts)}; A6 dispatches "
-          f"that zeroed the flags first {a6.clears}; phase took "
-          f"{time.perf_counter() - t0} s (host clock)")
+          f"that zeroed the flags first {a6.clears}; stacked K2 launches "
+          f"by its first design {k2s_first} (the others: "
+          f"rows_agg_kernel); phase took {time.perf_counter() - t0} s "
+          f"(host clock)")
     for k in RUNG4_PATH:
         check(rung4_counts[k] > 0, f"kernel {k} never launched on the "
                                    f"rung-4 path")
+    check(k2s_first == 0, f"stacked K2 took its first design "
+                          f"{k2s_first} times on the rung-4 path")
 
     # -- 4c. fuzzy path ----------------------------------------------------
     selfcheck.reset_launch_counts()
@@ -960,6 +966,8 @@ def main() -> int:
             entry["launches_split"] = k6_split
         if name == "fused_index_chain":   # memsets of the pooled flags
             entry["flag_clears"] = a6_clears
+        if name == "filter_aggregate_stacked":
+            entry["launches_first_design_rung4"] = k2s_first
         if len(results[name]) > 1:
             entry["other_shapes"] = [
                 {k: o[k] for k in ("label", "max_abs_err", "ms", "call_ms",

@@ -3,13 +3,20 @@
 shapes, split launch by launch: the device µs a call of each kernel,
 memset and copy they run, by name (``time_model_kernels.split_us``, L2
 write-flushed before each call).  Then the same cases built without the
-last block's fold of the float64 node sums (a patched copy of the
-sources under build/probes, ``patched.K2_NO_TAIL``), which leaves the
-scan and the partials: the variants' sums are wrong by design and only
-their times are read.  One JSON line a (build, case).
+last block's fold of the float64 node sums (``patched.K2_NO_TAIL``, and
+for the second stacked design ``K2S_NO_TAIL``), without the staging and
+window sums of the float64 values (``K2_NO_TREE``, ``K2S_NO_WINDOWS``),
+without the second
+stacked design's group tickets and folds (``K2S_NO_GROUPS``), and
+without all of them, which leaves the scan and the partials: patched
+copies of the sources under build/probes, whose sums are wrong by
+design and only their times are read.  One JSON line a (build, case).
 
-Usage:  python scripts/probes/a6_k2_split.py [--iters 50]
-        (from the repository root)
+Usage:  python scripts/probes/a6_k2_split.py [--src DIR] [--iters 50]
+        (from the repository root; ``--src``: a tree's ``src`` directory,
+        whose package and kernel sources are split instead of this
+        checkout's; a tree without the second stacked design gets no
+        ``K2S_*`` patches and no ``no_groups`` build)
 """
 
 import argparse
@@ -27,7 +34,9 @@ sys.path.insert(0, str(ROOT / "scripts" / "probes"))
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=50)
+    ap.add_argument("--src", default=str(ROOT / "src"))
     args = ap.parse_args()
+    sys.path.insert(0, str(Path(args.src).resolve()))
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels import selfcheck as SC
@@ -40,10 +49,23 @@ def main() -> int:
                           text=True)
     print(f"card: {card.stdout.strip()}", flush=True)
     dev = torch.device("cuda", 0)
-    from patched import CSRC, K2_NO_TAIL, patched_csrc, use_csrc
-    for name, csrc in (("whole", CSRC),
-                       ("no_tail", patched_csrc("a6_no_tail", K2_NO_TAIL))):
-        use_csrc(ops, csrc)
+    from patched import (K2_NO_TAIL, K2_NO_TREE, K2S_NO_GROUPS, K2S_NO_TAIL,
+                         K2S_NO_WINDOWS, merged, patched_csrc, use_csrc)
+    csrc = Path(ops.CSRC)
+    second = "rows_agg_kernel" in (csrc / "filter_aggregate.cu").read_text()
+    tails = merged(K2_NO_TAIL, K2S_NO_TAIL) if second else K2_NO_TAIL
+    trees = merged(K2_NO_TREE, K2S_NO_WINDOWS) if second else K2_NO_TREE
+    groups = K2S_NO_GROUPS if second else {}
+    builds = [("whole", csrc),
+              ("no_tail", patched_csrc("a6_no_tail", tails, csrc)),
+              ("no_tree", patched_csrc("a6_no_tree", trees, csrc))]
+    if second:
+        builds.append(("no_groups", patched_csrc("a6_no_groups", groups,
+                                                 csrc)))
+    builds.append(("none", patched_csrc(
+        "a6_none", merged(trees, tails, groups), csrc)))
+    for name, built in builds:
+        use_csrc(ops, built)
         for case in SC.rung_cases(dev):
             if case["kernel"] not in ("fused_index_chain",
                                       "filter_aggregate_stacked"):
@@ -57,7 +79,7 @@ def main() -> int:
                               "split_us": split,
                               "span_us": split.pop("span")}),
                   flush=True)
-    use_csrc(ops)
+    use_csrc(ops, csrc)
     return 0
 
 

@@ -6,9 +6,14 @@ probe switches; ``use_csrc`` points ``kernels.ops`` at such a copy (or
 back at the library's sources) and loads the library built from it.
 
 The K2 variants the probes build: ``K2_NO_TREE`` leaves out the staging
-of float64 windows (``tree_step`` returns at once), ``K2_NO_TAIL`` the
-last block's fold of the node sums.  Their sums are wrong by design;
-only their times are read.
+of float64 windows (``tree_step`` returns at once: the loop K2, A6 and
+the first stacked design), ``K2_NO_TAIL`` the last block's fold of the
+node sums (the same kernels).  For the second stacked design
+(``rows_agg_kernel``): ``K2S_NO_WINDOWS`` leaves out its window and node
+sums (``window_step`` returns at once), ``K2S_NO_GROUPS`` its tickets and
+folds of the groups of 32 nodes, ``K2S_NO_TAIL`` the folds above the
+first level of groups.  Their sums are wrong by design; only their times
+are read.
 """
 
 from __future__ import annotations
@@ -23,12 +28,22 @@ CSRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
 Patches = Dict[str, List[Tuple[str, str]]]
 
 K2_NO_TREE: Patches = {"agg_kernel.cuh": [(
-    "                                          int64_t n_nodes) {\n",
-    "                                          int64_t n_nodes) {\n"
-    "  return;\n")]}
+    "  sel &= valid_bits(r);\n  __syncthreads();",
+    "  return;\n  sel &= valid_bits(r);\n  __syncthreads();")]}
 K2_NO_TAIL: Patches = {"agg_kernel.cuh": [(
     "    if (a.c[j].dtype != DT_F64) continue;\n",
     "    break;\n")]}
+K2S_NO_WINDOWS: Patches = {"filter_aggregate.cu": [(
+    "  sel &= valid_bits(r);\n#pragma unroll\n  for (int b = 0; b < RUN; ++b) "
+    "{\n    const int row = 64 * (b >> 1) + 2 * lane + (b & 1);\n    stg[",
+    "  return;\n  sel &= valid_bits(r);\n#pragma unroll\n  for (int b = 0; "
+    "b < RUN; ++b) {\n    const int row = 64 * (b >> 1) + 2 * lane + (b & 1)"
+    ";\n    stg[")]}
+K2S_NO_TAIL: Patches = {"filter_aggregate.cu": [(
+    "    if (n_above == 1) return;\n", "    return;\n")]}
+K2S_NO_GROUPS: Patches = {"filter_aggregate.cu": [(
+    "  if (nf > 0 && warp < CWARPS) {\n    // a ticket a chunk",
+    "  if (false) {\n    // a ticket a chunk")]}
 
 
 def merged(*parts: Patches) -> Patches:
@@ -39,13 +54,13 @@ def merged(*parts: Patches) -> Patches:
     return out
 
 
-def patched_csrc(name: str, patches: Patches) -> Path:
-    """A copy of the kernel sources under build/probes/<name>/csrc with
-    ``patches`` ({file: [(old, new), ...]}) applied."""
+def patched_csrc(name: str, patches: Patches, src: Path = CSRC) -> Path:
+    """A copy of the kernel sources ``src`` under build/probes/<name>/csrc
+    with ``patches`` ({file: [(old, new), ...]}) applied."""
     dst = ROOT / "build" / "probes" / name / "csrc"
     if dst.exists():
         shutil.rmtree(dst)
-    shutil.copytree(CSRC, dst)
+    shutil.copytree(src, dst)
     for fname, pl in patches.items():
         path = dst / fname
         text = path.read_text()

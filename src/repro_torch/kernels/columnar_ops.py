@@ -192,11 +192,59 @@ def tree_sum(x: torch.Tensor) -> torch.Tensor:
         x = s
 
 
+# At a padded length of exactly 32 the reference's masked float64 sum takes
+# another order.  There XLA:CPU emits each sum as its own fusion, a 32-trip
+# loop of `fadd reassoc` over select(mask, x, 0.0), and LLVM's loop
+# vectorizer reassociates it (dumped from jax 0.9.0: the fusions'
+# ir-with-opt.ll): value i goes to accumulator (i / 4) mod U, lane i mod 4,
+# in trip order; the accumulators fold as acc1 + acc0, then acc2 + that,
+# then acc3 + that; the four lanes as (l0 + l2) + (l1 + l3).  The
+# interleave U follows the loop body's size, so the number K of predicate
+# columns the reference's jit sees (the live-row predicate counts as one).
+# Found by a sweep of K = 0 .. 24 and n = 17, 24, 31, 32 against the
+# reference (tests/test_torch_columnar_ops.py), the same for int64, int32
+# and float64 predicates and any number of aggregate columns; K = 25 .. 64
+# gave 4 too.  With no predicate (n = 32 exactly) and at every other
+# length the order stays tree_sum's.
+SUM32_UNROLL = {1: 4, 2: 4, 3: 2, 4: 2}       # K = 5 .. 15: 1; K >= 16: 4
+
+
+def sum32_unroll(n: int, k: int) -> int:
+    """The order of the reference's masked float64 sum over a padded length
+    ``n`` under ``k`` predicate columns: U, the accumulators of the
+    four-lane order above, at n = 32 and k >= 1; 0 for tree_sum's order."""
+    if n != SUM_WINDOW or k <= 0:
+        return 0
+    return SUM32_UNROLL.get(k, 1 if k < 16 else 4)
+
+
+def sum32(x: torch.Tensor, u: int) -> torch.Tensor:
+    """Sum of a float64 [32] vector in the four-lane, ``u``-accumulator
+    order above (each accumulator lane from +0.0: the reference's -0.0
+    starts give the same bits, as its lane 0 starts at +0.0)."""
+    trips = x.view(-1, u, 4)
+    acc = x.new_zeros(u, 4)
+    for t in range(trips.shape[0]):
+        acc = acc + trips[t]
+    v = acc[0]
+    for a in range(1, u):
+        v = acc[a] + v
+    return (v[0] + v[2]) + (v[1] + v[3])
+
+
+def masked_sum(x: torch.Tensor, k: int) -> torch.Tensor:
+    """A float64 column's masked values summed as the reference sums them
+    under ``k`` predicate columns (:func:`sum32_unroll`)."""
+    u = sum32_unroll(x.shape[0], k)
+    return sum32(x, u) if u else tree_sum(x)
+
+
 def filter_aggregate_plain(pcols: Sequence[Col], acols: Sequence[Col],
                            n: int, dev: torch.device
                            ) -> Tuple[int, List[Tuple]]:
     """K2's plain version: (survivor count, [(sum, min, max, valid
-    count)] per aggregate column)."""
+    count)] per aggregate column); float64 sums in the reference's order
+    under ``len(pcols)`` predicate columns (:func:`masked_sum`)."""
     if pcols:
         mask = range_mask_plain(pcols, n)
     else:
@@ -213,7 +261,8 @@ def filter_aggregate_plain(pcols: Sequence[Col], acols: Sequence[Col],
             info = torch.iinfo(torch.int64)
             zero, big, small = 0, info.max, info.min
         s = torch.where(ok, x, zero)
-        s = (tree_sum(s) if x.dtype.is_floating_point else s.sum()).item()
+        s = (masked_sum(s, len(pcols)) if x.dtype.is_floating_point
+             else s.sum()).item()
         mn = torch.where(ok, x, big).min().item()
         mx = torch.where(ok, x, small).max().item()
         per_col.append((s, mn, mx, cnt))
@@ -428,9 +477,10 @@ def filter_aggregate_cuda(pcols: Sequence[Col], acols: Sequence[Col],
     columns (:func:`fold_extra_preds`).  Returns the raw int64 result row
     on the device: ``[count, (valid count, sum, min, max) per aggregate
     column]`` with float64 slots as raw bits (see
-    :func:`decode_aggregate`), float64 sums folded in :func:`tree_sum`'s
-    order.  Operands that are not all 16-byte aligned are read row by
-    row."""
+    :func:`decode_aggregate`), float64 sums folded in the reference's
+    order (:func:`masked_sum` under ``len(pcols)`` columns).  Operands
+    that are not all 16-byte aligned are read row by row."""
+    u32 = sum32_unroll(n, len(pcols))
     pcols = fold_extra_preds(pcols, lambda cols: range_mask_cuda(cols, n))
     m = len(acols)
     pd, ad = _descs(pcols), _descs(acols)
@@ -440,10 +490,10 @@ def filter_aggregate_cuda(pcols: Sequence[Col], acols: Sequence[Col],
     part, ticket, nodes = _agg_scratch(dev, stride)
     out = torch.empty(1 + 4 * m, dtype=torch.int64, device=dev)
     f = _fn("rt_filter_aggregate",
-            [_P, _I, _P, _I, _L, _I, _I, _P, _P, _P, _P, _L, _P])
+            [_P, _I, _P, _I, _L, _I, _I, _P, _P, _P, _P, _L, _I, _P])
     rc = f(ctypes.cast(pd, _P), len(pcols), ctypes.cast(ad, _P), m, n,
            agg_blocks(n), int(vec), part.data_ptr(), ticket.data_ptr(),
-           out.data_ptr(), nodes.data_ptr(), stride, _ops.stream(out))
+           out.data_ptr(), nodes.data_ptr(), stride, u32, _ops.stream(out))
     filter_aggregate_cuda.launches += 1
     _ops.check(rc, "fused_filter_aggregate")
     return out

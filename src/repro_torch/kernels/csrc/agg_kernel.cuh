@@ -57,6 +57,15 @@ __device__ __forceinline__ int64_t max_f(int64_t a, int64_t b) {
   return x != x ? a : y != y ? b : y > x ? b : a;
 }
 
+// A float64 sum's bits as written out: a NaN as the canonical quiet NaN.
+// Which input NaN an add of two NaNs keeps turns on the operand order the
+// compiler chose, which differs between kernels that add the same values
+// in the same order (ptxas commutes adds), so only the NaN itself is kept.
+__device__ __forceinline__ int64_t sum_bits(double s) {
+  return s != s ? static_cast<int64_t>(0x7ff8000000000000LL)
+                : __double_as_longlong(s);
+}
+
 template <int OP>
 __device__ __forceinline__ int64_t comb(int64_t a, int64_t b) {
   if constexpr (OP == OP_ADD_I) return add_i(a, b);
@@ -156,14 +165,47 @@ struct TreeSmem {
   double wsum[CHUNK_WIN];
 };
 
+// The reference's order for a masked float64 sum over a padded length of
+// exactly 32 under K >= 1 predicate columns (kernels/columnar_ops.py:
+// sum32, whose sum32_unroll gives U): value i goes to accumulator
+// (i / 4) mod U, lane i mod 4, in order; then acc1 + acc0, acc2 + that,
+// acc3 + that; then (l0 + l2) + (l1 + l3).
+template <int U>
+__device__ __forceinline__ double sum32_t(const double* w) {
+  double acc[U][4];
+#pragma unroll
+  for (int a = 0; a < U; ++a)
+#pragma unroll
+    for (int l = 0; l < 4; ++l) acc[a][l] = 0.0;
+#pragma unroll
+  for (int i = 0; i < TREE_W; ++i) acc[(i / 4) % U][i % 4] += w[i];
+  double v[4];
+#pragma unroll
+  for (int l = 0; l < 4; ++l) v[l] = acc[0][l];
+#pragma unroll
+  for (int a = 1; a < U; ++a)
+#pragma unroll
+    for (int l = 0; l < 4; ++l) v[l] = acc[a][l] + v[l];
+  return (v[0] + v[2]) + (v[1] + v[3]);
+}
+static __device__ __noinline__ double sum32(const double* w, int u) {
+  switch (u) {
+    case 1: return sum32_t<1>(w);
+    case 2: return sum32_t<2>(w);
+    default: return sum32_t<4>(w);
+  }
+}
+
 // Stage a float64 column's masked values of the block's chunk (rows of
 // `sel` keep theirs, the rest add +0.0), sum its windows and its two
 // nodes, each left to right from 0.0, and store the nodes below n_nodes
 // at nodes[node0], nodes[node0 + 1].  Every thread of the block calls it.
+// u32 > 0 (the loop K2 at n = 32): window 0, the whole column, sums in
+// sum32's order instead.
 __device__ __forceinline__ void tree_step(const Run& r, uint32_t sel,
                                           TreeSmem& ts, int warp, int lane,
                                           double* nodes, int64_t node0,
-                                          int64_t n_nodes) {
+                                          int64_t n_nodes, int u32 = 0) {
   sel &= valid_bits(r);
   __syncthreads();                   // the previous step's readers are done
 #pragma unroll
@@ -175,8 +217,12 @@ __device__ __forceinline__ void tree_step(const Run& r, uint32_t sel,
   __syncthreads();
   if (threadIdx.x < CHUNK_WIN) {
     double s = 0.0;
+    if (u32 > 0 && threadIdx.x == 0) {
+      s = sum32(ts.win[0], u32);
+    } else {
 #pragma unroll
-    for (int q = 0; q < TREE_W; ++q) s += ts.win[threadIdx.x][q];
+      for (int q = 0; q < TREE_W; ++q) s += ts.win[threadIdx.x][q];
+    }
     ts.wsum[threadIdx.x] = s;
   }
   __syncthreads();
@@ -206,6 +252,7 @@ struct RowArgs {
   int nf;                  // range fields (0: K2)
   int stamp;               // the dispatch's flag stamp, 1 .. 255 (A6)
   int rows_vec;            // rows past the first keep vector alignment
+  int sum32;               // the loop K2 at n = 32: sum32's U (0: windows)
 };
 
 // A6: a run's candidate and found bits from the lane's rows (live below
@@ -316,6 +363,7 @@ agg_kernel(ColTable p, ColTable a, int64_t n, int vec, int64_t* part,
   const int64_t wruns = (n + WRUN - 1) / WRUN;
   const int64_t n_nodes = (n + NODE_ROWS - 1) / NODE_ROWS;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * (THREADS / 32);
+  const int u32 = !CHAIN && !ROWS && n == TREE_W ? ra.sum32 : 0;
   if constexpr (ROWS) __syncthreads();   // the staged bounds
   // every warp of a block runs the same iterations (tree_step syncs the
   // block); a warp whose run lies past n loads nothing and masks all rows
@@ -364,7 +412,7 @@ agg_kernel(ColTable p, ColTable a, int64_t n, int vec, int64_t* part,
         agg_run(a.c[j], ab[j], mask, acc[j]);
         if (a.c[j].dtype == DT_F64)
           tree_step(ab[j], mask, ts, warp, lane, nodes + j * node_stride,
-                    node0, n_nodes);
+                    node0, n_nodes, u32);
       }
     } else {
       // predicate c's run sits in pb[c & 1], aggregate j's in ab[j & 1]
@@ -394,7 +442,7 @@ agg_kernel(ColTable p, ColTable a, int64_t n, int vec, int64_t* part,
         agg_run(a.c[j], ab[j & 1], mask, acc[j]);
         if (a.c[j].dtype == DT_F64)
           tree_step(ab[j & 1], mask, ts, warp, lane,
-                    nodes + j * node_stride, node0, n_nodes);
+                    nodes + j * node_stride, node0, n_nodes, u32);
       }
     }
   }
@@ -490,7 +538,7 @@ agg_kernel(ColTable p, ColTable a, int64_t n, int vec, int64_t* part,
       len = parents;
     }
     if (threadIdx.x == 0)
-      out[NC + 1 + 4 * (col_base + j)] = __double_as_longlong(__ldcg(src));
+      out[NC + 1 + 4 * (col_base + j)] = sum_bits(__ldcg(src));
   }
   if (threadIdx.x == 0) *ticket = 0u;   // ready for the next launch
 }

@@ -24,7 +24,7 @@ runs the plain PyTorch version beside it.
 from __future__ import annotations
 
 import ctypes
-from typing import Any, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -62,14 +62,37 @@ def filter_aggregate_rows_plain(pcols: Sequence[Tuple],
     return raw, mask.cpu().numpy()
 
 
+# per (device, stream): stacked K2's tickets on its groups of 32 float64
+# node sums, uint32 [rows, stride], zeros between launches (the kernel
+# leaves them 0; grown to the most rows and groups seen)
+_GROUP_TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _group_tickets(dev: torch.device, rows: int, stride: int
+                   ) -> torch.Tensor:
+    key = (dev.index if dev.index is not None else
+           torch.cuda.current_device(),
+           torch.cuda.current_stream(dev).cuda_stream)
+    got = _GROUP_TICKETS.get(key)
+    if got is None or got.numel() < rows * stride:
+        got = _GROUP_TICKETS[key] = torch.zeros(rows * stride,
+                                                dtype=torch.int32,
+                                                device=dev)
+    return got
+
+
 def filter_aggregate_rows_cuda(pcols: Sequence[Tuple],
                                acols: Sequence[Tuple], rows: int, n: int
                                ) -> torch.Tensor:
     """Stacked K2 on the card: one launch over every row (per 8 aggregate
-    columns), each row folding into its own scratch and out row.  Returns
-    the packed result on the card (``chain_ops.unpack``'s layout), which
-    comes back in one copy.  More than 8 predicate columns add one
-    stacked K1 launch first (``columnar_ops.fold_extra_preds``)."""
+    columns), each row folding into its own scratch and out row
+    (``csrc/filter_aggregate.cu``: rows_agg_kernel, a grid of about one
+    wave streaming its chunks through shared memory, where every operand
+    is 16-byte aligned and n a multiple of 16; else the first design).
+    Returns the packed result on the card (``chain_ops.unpack``'s layout),
+    which comes back in one copy.  More than 8 predicate columns add one
+    stacked K1 launch first (``columnar_ops.fold_extra_preds``).  Launches
+    that took the first design are also counted in ``launches_first``."""
     pcols = CO.fold_extra_preds(
         pcols, lambda cols: range_mask_rows_cuda(cols, rows, n))
     dev = pcols[0][0].device
@@ -81,23 +104,30 @@ def filter_aggregate_rows_cuda(pcols: Sequence[Tuple],
     bounds = CO.bounds_dev(pcols, dev)
     stride = CO.tree_node_stride(n)
     part, ticket, nodes = CO._agg_scratch(dev, stride, rows)
+    # a ticket a group of 32 node sums at every level: fewer than the
+    # nodes of all levels
+    gticket = _group_tickets(dev, rows, stride)
     w = 1 + 4 * m
     res = torch.empty(rows * w * 8 + rows * n, dtype=torch.uint8, device=dev)
     out = res[:rows * w * 8].view(torch.int64)
     mask = res[rows * w * 8:]
     f = CO._fn("rt_filter_aggregate_rows",
                [CO._P, CO._I, CO._P, CO._I, CO._L, CO._I, CO._I, CO._I,
-                CO._P, CO._P, CO._P, CO._P, CO._L, CO._P, CO._P, CO._P])
+                CO._P, CO._P, CO._P, CO._L, CO._P, CO._P, CO._L, CO._P,
+                CO._P, CO._P])
     rc = f(ctypes.cast(pd, CO._P), len(pcols), ctypes.cast(ad, CO._P), m, n,
            rows, CO.agg_blocks(n), int(vec), part.data_ptr(),
-           ticket.data_ptr(), out.data_ptr(), nodes.data_ptr(), stride,
-           bounds.data_ptr(), mask.data_ptr(), _ops.stream(out))
+           ticket.data_ptr(), gticket.data_ptr(), stride, out.data_ptr(),
+           nodes.data_ptr(), stride, bounds.data_ptr(), mask.data_ptr(),
+           _ops.stream(out))
     filter_aggregate_rows_cuda.launches += 1
+    filter_aggregate_rows_cuda.launches_first += int(not vec or n % 16)
     _ops.check(rc, "fused_filter_aggregate (stacked)")
     return res
 
 
 filter_aggregate_rows_cuda.launches = 0
+filter_aggregate_rows_cuda.launches_first = 0
 
 
 def filter_aggregate_rows(pcols: Sequence[Tuple], acols: Sequence[Tuple],

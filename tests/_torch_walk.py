@@ -18,7 +18,16 @@ the blocks as the kernel's last block does (lane l folds blocks l, l + 32,
 ... in order, then the shuffle tree).  Integer slots do not depend on the
 order; the float64 min and max do (which NaN, which of -0.0 / +0.0), so
 they are folded exactly; float64 sums are the 1,024-row nodes and their
-32-ary tree."""
+32-ary tree.
+
+The second stacked K2 design (``rows_agg_kernel`` in ``csrc/
+filter_aggregate.cu``, ``k2s_walk``): a row's grid of G blocks, block g
+taking logical blocks [g per, (g + 1) per) with their chunks; counts and
+integer slots one partial a grid block, the float64 min / max a partial
+per logical block (folded as above), the float64 sums' nodes a ticket a
+chunk on its group of 32 nodes, whose last chunk's block folds the group
+into the level above, and on up a ticket a group at every level, so the
+block completing the top group writes the sum."""
 
 import numpy as np
 
@@ -57,6 +66,13 @@ def _bits(x):
 
 def _scalar_bits(x):
     return int(np.array(x, dtype=np.float64).view(np.int64))
+
+
+def _sum_bits(x):
+    """A float64 sum's bits as the kernels write them: a NaN as the
+    canonical quiet NaN (which input NaN an add keeps is the compiler's
+    operand order, ``agg_kernel.cuh:sum_bits``)."""
+    return _scalar_bits(np.nan if np.isnan(x) else x)
 
 
 def _f64(bits):
@@ -156,7 +172,7 @@ def row_slots(sel, cols, n, nblk):
         ok = sel & valid
         if x.dtype == np.float64:
             bits = _bits(x)
-            s = _scalar_bits(tree_sum_nodes(np.where(ok, x, 0.0), n))
+            s = _sum_bits(tree_sum_nodes(np.where(ok, x, 0.0), n))
             mn = _row_fold("fmin", [_block_partial("fmin", bits, ok, n, nblk,
                                                    b) for b in range(nblk)])
             mx = _row_fold("fmax", [_block_partial("fmax", bits, ok, n, nblk,
@@ -228,3 +244,114 @@ def chain_masks(fl, stamp, idx, n_live, total):
     for h in hit[1:]:
         found &= h
     return cand, found
+
+
+GROUP_CHUNKS = 16                       # chunks of a group of 32 nodes
+
+
+def k2s_grid(rows, n, sms=132, bps=2):
+    """(per, G): logical blocks a grid block and grid blocks a row, G R
+    about ``bps`` blocks on each of ``sms`` SMs (``launch_rows``)."""
+    nb = agg_blocks(n)
+    per = max(1, -(-nb * rows // (sms * bps)))
+    return per, -(-nb // per)
+
+
+def _fold32(vals):
+    """One level of the window tree: 32 values at a time, left to right
+    from 0.0 (a missing one adds +0.0)."""
+    v = np.concatenate([vals, np.zeros(-len(vals) % TREE_W)])
+    v = v.reshape(-1, TREE_W)
+    s = np.zeros(v.shape[0])
+    for q in range(TREE_W):
+        s = s + v[:, q]
+    return s
+
+
+def _node_sums(x, n):
+    """The 1,024-row node sums of a chunk-padded column: 32 windows each
+    left to right from 0.0, then the windows the same way."""
+    n_nodes = -(-n // (TREE_W * TREE_W))
+    v = np.concatenate([x[:n], np.zeros(n_nodes * TREE_W * TREE_W - n)])
+    return _fold32(_fold32(v))
+
+
+def k2s_walk(masks, cols, rows, n, counts, sms=132, seed=0):
+    """(raw [rows, len(counts[0]) + 4 M], walk) as the second stacked
+    design computes them, each row's blocks finishing in a random order
+    (``seed``); ``walk`` per row: (the chunks each grid block took, per
+    level above the nodes the block that completed each group, per level
+    the tickets' counts)."""
+    rng = np.random.default_rng(seed)
+    T = -(-n // CHUNK)
+    nb = agg_blocks(n)
+    per, G = k2s_grid(rows, n, sms)
+    n_nodes = -(-n // (TREE_W * TREE_W))
+    n_groups = -(-n_nodes // TREE_W)
+    raw, walks = [], []
+    for r in range(rows):
+        took = []
+        for g in range(G):
+            lb = range(g * per, min(nb, (g + 1) * per))
+            took.append([c for b in lb for c in range(b, T, nb)])
+        order = rng.permutation(G)
+        sizes = [n_groups]                  # groups a level
+        while sizes[-1] > 1:
+            sizes.append(-(-sizes[-1] // TREE_W))
+        tickets = [np.zeros(m, dtype=np.int64) for m in sizes]
+        finished = [{} for _ in sizes]
+        for g in order:
+            for c in took[g]:
+                grp = c // GROUP_CHUNKS
+                tickets[0][grp] += 1
+                if tickets[0][grp] < min(GROUP_CHUNKS,
+                                         T - grp * GROUP_CHUNKS):
+                    continue
+                finished[0][grp] = g        # fold_up, on up
+                for lv in range(1, len(sizes)):
+                    grp //= TREE_W
+                    tickets[lv][grp] += 1
+                    if tickets[lv][grp] < min(TREE_W, sizes[lv - 1]
+                                              - grp * TREE_W):
+                        break
+                    finished[lv][grp] = g
+        slots = list(counts[r])
+        for x, valid in cols:
+            xr, ok = x[r], masks[r] & valid[r]
+            if xr.dtype == np.float64:
+                bits = _bits(xr)
+                nodes = _node_sums(np.where(ok, xr, 0.0), n)
+                level = np.asarray([_fold32(nodes[TREE_W * q:
+                                                  TREE_W * q + TREE_W])[0]
+                                    for q in range(n_groups)])
+                while level.shape[0] > 1:
+                    level = _fold32(level)
+                s = _sum_bits(level[0])
+                mn = _row_fold("fmin", [_block_partial("fmin", bits, ok, n,
+                                                       nb, b)
+                                        for b in range(nb)])
+                mx = _row_fold("fmax", [_block_partial("fmax", bits, ok, n,
+                                                       nb, b)
+                                        for b in range(nb)])
+            else:
+                v = xr.astype(np.int64)
+                parts = []
+                for g in order:
+                    rws = np.zeros(n, dtype=bool)
+                    for c in took[g]:
+                        rws[c * CHUNK:(c + 1) * CHUNK] = True
+                    sel = ok & rws
+                    parts.append((
+                        int(v[sel].astype(np.uint64).sum(dtype=np.uint64)
+                            .astype(np.int64)),
+                        int(v[sel].min()) if sel.any() else I64.max,
+                        int(v[sel].max()) if sel.any() else I64.min))
+                s = int(np.asarray([p[0] for p in parts], dtype=np.int64)
+                        .astype(np.uint64).sum(dtype=np.uint64)
+                        .astype(np.int64))
+                mn = min(p[1] for p in parts)
+                mx = max(p[2] for p in parts)
+            slots += [int(ok.sum()), s, mn, mx]
+        raw.append(slots)
+        walks.append((took, finished, tickets))
+    return np.asarray(raw, dtype=np.int64), walks

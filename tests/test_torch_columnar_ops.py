@@ -542,14 +542,12 @@ def test_fused_filter_aggregate_wide_matches_x64(RK, k, n):
                                                      force_pallas=False))
 
 
-@pytest.mark.xfail(strict=True, reason=(
-    "open fault, ROADMAP.md section C.1: a float64 sum over 17 to 31 "
-    "rows differs from the reference's in its last bits"))
 def test_float64_sum_of_17_to_31_rows_matches_x64_bits(RK):
     """K2's float64 sum over 17-31 rows, bit for bit against the
-    reference's x64 path, which pads them to 32 and masks the padding.
-    ``_assert_agg_equal`` allows sums 1e-12 apart, so it cannot see this;
-    strict, so the fault's repair turns it into a failure to flip."""
+    reference's x64 path, which pads them to 32 and masks the padding with
+    its live-row predicate (``columnar_ops.sum32_unroll`` at K = 1).
+    ``_assert_agg_equal`` allows sums 1e-12 apart, so it cannot see
+    this."""
     differ = []
     for n in (17, 20, 24, 29, 31):
         for seed in range(4):
@@ -561,6 +559,66 @@ def test_float64_sum_of_17_to_31_rows_matches_x64_bits(RK):
             if got != ref:
                 differ.append((n, seed, got, ref))
     assert not differ, differ
+
+
+def _loose_preds(rng, k, n):
+    """``k`` predicate columns of int64, int32 and float64 values (NaN in
+    the floats) that keep most rows, so that a sum has many terms."""
+    out = []
+    for j in range(k):
+        valid = rng.random(n) < 0.95
+        if j % 3 == 0:
+            out.append((rng.integers(0, 100, n, dtype=np.int64), valid, 2,
+                        None))
+        elif j % 3 == 1:
+            out.append((rng.integers(0, 50, n).astype(np.int32), valid,
+                        None, 48))
+        else:
+            x = rng.standard_normal(n)
+            x[rng.random(n) < 0.02] = np.nan
+            out.append((x, valid, -3.0, None))
+    return out
+
+
+@pytest.mark.parametrize("n", [17, 24, 31, 32])
+@pytest.mark.parametrize("k", [0, 1, 2, 3, 4, 5, 8, 9, 15, 16, 17, 24])
+def test_float64_sum_at_32_slots_matches_x64_bits(RK, k, n):
+    """K2's plain version at a padded length of 32 under ``k`` predicate
+    columns (the live-row predicate adds one where ``k`` = 0 and n < 32),
+    bit for bit against the reference's x64 path: the four-lane,
+    U-accumulator order of ``columnar_ops.sum32_unroll`` (U = 4, 2, 1, 4
+    as K grows), and the window order with no predicate at n = 32.  Four
+    draws a case, two float64 aggregate columns and an int64 one."""
+    for seed in range(4):
+        rng = np.random.default_rng(1000 * k + 10 * n + seed)
+        preds = _loose_preds(rng, k, n)
+        aggs = [(rng.standard_normal(n) * 100.0, rng.random(n) < 0.9),
+                (rng.integers(-50, 50, n, dtype=np.int64),
+                 np.ones(n, bool)),
+                (rng.standard_normal(n) * 1e6, np.ones(n, bool))]
+        got = PK.fused_filter_aggregate(preds, aggs, n)
+        ref = RK.fused_filter_aggregate(preds, aggs, n, force_pallas=False)
+        assert got["count"] == ref["count"] and got["count"] > 0
+        assert got["cnts"] == ref["cnts"]
+        for key in ("sums", "mins", "maxs"):
+            assert [repr(v) for v in got[key]] == \
+                [repr(v) for v in ref[key]], (key, seed)
+
+
+def test_sum32_order_table():
+    """``sum32_unroll``: the order only at a padded length of 32 with a
+    predicate, U = 4, 4, 2, 2 for K = 1-4, 1 for K = 5-15 and 4 from 16
+    on; ``sum32`` at U = 1 is four strided lanes."""
+    assert [PK.sum32_unroll(32, k) for k in range(0, 26)] == \
+        [0, 4, 4, 2, 2] + [1] * 11 + [4] * 10
+    assert PK.sum32_unroll(16, 3) == PK.sum32_unroll(64, 3) == 0
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(32))
+    lanes = [0.0] * 4
+    for i, v in enumerate(x.tolist()):
+        lanes[i % 4] = lanes[i % 4] + v
+    want = (lanes[0] + lanes[2]) + (lanes[1] + lanes[3])
+    assert PK.sum32(x, 1).item() == want
+    assert PK.masked_sum(x, 0).item() == PK.tree_sum(x).item()
 
 
 @pytest.mark.parametrize("k", [1, 8, 9, 17])

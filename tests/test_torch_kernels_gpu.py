@@ -334,7 +334,7 @@ def test_bitset_intersect_counts_live_pairs(dev, P):
     assert SC.launch_counts()["bitset_intersect_counts"] == before + 1
 
 
-@pytest.mark.parametrize("i", range(14))
+@pytest.mark.parametrize("i", range(15))
 def test_main_path_shapes(dev, i):
     r = SC.run_case(SC.main_path_cases(dev)[i], timed=False)
     assert r["ok"], r
@@ -844,7 +844,7 @@ def test_stacked_range_mask_equals_loop_kernel(dev, rows, n, kinds):
 
 
 @pytest.mark.parametrize("rows", [1, 4])
-@pytest.mark.parametrize("n", [1, 37, 4096, (1 << 19)])
+@pytest.mark.parametrize("n", [1, 32, 37, 4096, (1 << 19)])
 @pytest.mark.parametrize("preds,aggs", [
     (["ts"], ["id", "f64n"]), (["f64", "code"], ["code", "nan", "ts"]),
     (["id"], ["id", "f64n", "ts", "code", "f64n", "id", "code", "ts",
@@ -853,7 +853,11 @@ def test_stacked_filter_aggregate_equals_loop_kernel(dev, rows, n, preds,
                                                      aggs):
     """Stacked K2 against its plain version (float64 sums bit for bit),
     and each row's counts and scalars bit for bit against the loop's K2 on
-    that row."""
+    that row.  At n = 32 the loop K2 sums float64 columns in the
+    reference's 32-slot order, which the reference's stacked core does
+    not take: there the stacked rows' sums are held against the stacked
+    plain version only (by ``run_case``), every other slot against the
+    loop's."""
     import numpy as np
     from repro_torch.kernels import columnar_ops as CO
     case = SC.k2_rows_case(rows, n, preds, aggs, seed=n + rows, dev=dev)
@@ -862,12 +866,16 @@ def test_stacked_filter_aggregate_equals_loop_kernel(dev, rows, n, preds,
     from repro_torch.kernels import spmd_ops as SO
     raw, _mask = SO.filter_aggregate_rows(case["pcols"], case["acols"],
                                           rows, n)
+    floats = ("f64", "f64n", "nan")
+    slots = [c for c in range(raw.shape[1])
+             if not (CO.sum32_unroll(n, len(preds)) and c % 4 == 2
+                     and aggs[(c - 2) // 4] in floats)]
     for i in range(rows):
         pcols = [(x[i], v[i], lo[i], hi[i])
                  for x, v, lo, hi in case["pcols"]]
         acols = [(x[i], v[i], None, None) for x, v in case["acols"]]
         loop = CO.filter_aggregate_cuda(pcols, acols, n, dev).cpu().numpy()
-        assert np.array_equal(loop, raw[i]), i
+        assert np.array_equal(loop[slots], raw[i][slots]), i
 
 
 def _exchange_on_card(dev, cparts, keys, p):
@@ -1312,3 +1320,156 @@ def test_mesh_lifecycle_schedules_on_card(dev, devs):
         got[name] = res
     repro_torch.set_device("cuda")
     assert got["cuda"] == got["cpu"]
+
+
+# ---------------------------------------------------------------------------
+# the reference's 32-slot float64 sum order (the loop K2 at a padded
+# length of 32), and stacked K2's second design (rows_agg_kernel)
+# ---------------------------------------------------------------------------
+
+def _loose_preds(rng, k, n):
+    """``k`` predicate columns of int64, int32 and float64 values (NaN in
+    the floats) that keep most rows (tests/test_torch_columnar_ops.py has
+    the same, against the reference)."""
+    import numpy as np
+    out = []
+    for j in range(k):
+        valid = rng.random(n) < 0.95
+        if j % 3 == 0:
+            out.append((rng.integers(0, 100, n, dtype=np.int64), valid, 2,
+                        None))
+        elif j % 3 == 1:
+            out.append((rng.integers(0, 50, n).astype(np.int32), valid,
+                        None, 48))
+        else:
+            x = rng.standard_normal(n)
+            x[rng.random(n) < 0.02] = np.nan
+            out.append((x, valid, -3.0, None))
+    return out
+
+
+@pytest.mark.parametrize("n", [17, 24, 31, 32])
+@pytest.mark.parametrize("k", [0, 1, 2, 3, 4, 5, 8, 9, 15, 16, 17, 24])
+def test_filter_aggregate_32_slots_equal_plain_bits(dev, k, n):
+    """K2 on the card at a padded length of 32 under ``k`` predicate
+    columns (past 8 folded into slot 7 by one K1 launch, the order still
+    that of all ``k``): the wrapper's result equal to the same call on the
+    CPU (the plain version, which tests/test_torch_columnar_ops.py holds
+    against the reference) by exact repr, one K2 launch a call."""
+    import numpy as np
+    from repro_torch.kernels import columnar_ops as CO
+    for seed in range(4):
+        rng = np.random.default_rng(1000 * k + 10 * n + seed)
+        preds = _loose_preds(rng, k, n)
+        aggs = [(rng.standard_normal(n) * 100.0, rng.random(n) < 0.9),
+                (rng.integers(-50, 50, n, dtype=np.int64),
+                 np.ones(n, bool)),
+                (rng.standard_normal(n) * 1e6, np.ones(n, bool))]
+        before = CO.filter_aggregate_cuda.launches
+        got = CO.fused_filter_aggregate(preds, aggs, n)
+        assert CO.filter_aggregate_cuda.launches == before + 1
+        repro_torch.set_device("cpu")
+        try:
+            want = CO.fused_filter_aggregate(preds, aggs, n)
+        finally:
+            repro_torch.set_device("cuda")
+        assert repr(got) == repr(want), (seed, got, want)
+
+
+def _k2s_case(dev, rows, n, preds, aggs, seed, empty_last=False):
+    """A stacked K2 case whose last row (``empty_last``) no predicate
+    keeps."""
+    case = SC.k2_rows_case(rows, n, preds, aggs, seed=seed, dev=dev)
+    if empty_last:
+        for x, v, lo, hi in case["pcols"]:
+            v[-1] = False
+    return case
+
+
+@pytest.mark.parametrize("rows", [1, 3, 4, 5, 8])
+@pytest.mark.parametrize("n", [16, 592, 1024, 3 * 2048 + 16, 33 * 1024 + 16,
+                               16 * 2048, 264 * 2048 + 4096, 1 << 20])
+@pytest.mark.parametrize("preds,aggs", [
+    (["ts"], ["id", "f64n"]), (["f64", "code"], ["code", "nan", "ts"]),
+    (["id"], ["f64n", "nan", "f64n"])])
+def test_stacked_second_design_equals_plain(dev, rows, n, preds, aggs):
+    """Stacked K2's second design against its plain version bit for bit
+    (NaN equal to NaN): rows that do not divide the card's SMs, n off the
+    2,048-row chunk, off a group of 32 nodes, a whole group, past 264
+    chunks (logical blocks of two), a single node (n <= 1,024) under three
+    float64 columns side by side in the node array, the last row empty at
+    R > 1; every operand aligned and n a multiple of 16, so no launch
+    takes the first design."""
+    case = _k2s_case(dev, rows, n, preds, aggs, seed=n + rows,
+                     empty_last=rows > 1)
+    from repro_torch.kernels import spmd_ops as SO
+    first = SO.filter_aggregate_rows_cuda.launches_first
+    r = SC.run_case(case, timed=False)
+    assert r["ok"] and r["max_abs_err"] == 0.0, r
+    assert SO.filter_aggregate_rows_cuda.launches_first == first
+
+
+@pytest.mark.parametrize("rows", [1, 4])
+@pytest.mark.parametrize("n", [4096, 1 << 19])
+@pytest.mark.parametrize("kinds", [SC.WIDE9, SC.WIDE17])
+def test_stacked_second_design_wide_preds(dev, rows, n, kinds):
+    """The second design with 9 and 17 predicate columns (one stacked K1
+    launch first folds those past 7 into slot 7) and four aggregate
+    columns, against its plain version bit for bit."""
+    case = _k2s_case(dev, rows, n, kinds, ["id", "f64n", "code", "nan"],
+                     seed=n + rows + len(kinds))
+    r = SC.run_case(case, timed=False)
+    assert r["ok"] and r["max_abs_err"] == 0.0, r
+
+
+@pytest.mark.parametrize("rows", [3, 8])
+@pytest.mark.parametrize("n", [3 * 2048 + 16, 1 << 19])
+def test_stacked_second_design_zeros_nan_payloads(dev, rows, n):
+    """The second design's min / max over +0.0 / -0.0 and NaNs of three
+    payloads: each row's raw slots bit for bit the loop kernel's on that
+    row (the same fold order), and the plain version's with NaN equal to
+    NaN and the zeros equal as values (which zero torch's min / max
+    return is their own)."""
+    import math
+    import numpy as np
+    from repro_torch.kernels import columnar_ops as CO
+    from repro_torch.kernels import spmd_ops as SO
+    rng = np.random.default_rng(n + rows)
+    ids = torch.from_numpy(rng.integers(0, 1000, (rows, n))).to(dev)
+    ok = torch.ones((rows, n), dtype=torch.bool, device=dev)
+    pcols = [(ids, ok, np.full(rows, 100, np.int64),
+              np.full(rows, 900, np.int64))]
+    acols = _zero_nan_cols(rows, n, n + rows + 1, dev)
+    first = SO.filter_aggregate_rows_cuda.launches_first
+    raw, mask = SO.filter_aggregate_rows(pcols, acols, rows, n)
+    assert SO.filter_aggregate_rows_cuda.launches_first == first
+    praw, pmask = SO.filter_aggregate_rows_plain(pcols, acols, rows, n)
+    assert np.array_equal(mask, pmask)
+    for i in range(rows):
+        loop = CO.filter_aggregate_cuda(
+            [(ids[i], ok[i], np.int64(100), np.int64(900))],
+            [(x[i], v[i], None, None) for x, v in acols], n,
+            dev).cpu().numpy()
+        assert np.array_equal(loop, raw[i]), i
+        for c in range(raw.shape[1]):
+            g, w = raw[i, c], praw[i, c]
+            if c in (2, 3, 4, 6, 7, 8):          # the float64 slots
+                g, w = (np.asarray([v]).view(np.float64)[0] for v in (g, w))
+                assert (math.isnan(g) and math.isnan(w)) or g == w, (i, c)
+            else:
+                assert g == w, (i, c)
+
+
+def test_stacked_second_design_back_to_back(dev):
+    """300 launches of the second design queued on one stream before one
+    synchronize, alternating two shapes whose grids, chunk counts and
+    node groups differ: each equal to its plain version, so every launch
+    left its row and group tickets at 0 for the next."""
+    cases = [_k2s_case(dev, 4, 1 << 16, ["ts"], ["id", "f64n"], seed=1),
+             _k2s_case(dev, 3, 33 * 1024 + 16, ["f64", "code"],
+                       ["f64n", "code"], seed=2, empty_last=True)]
+    want = [c["plain"]() for c in cases]
+    got = [cases[i % 2]["run"]() for i in range(300)]
+    torch.cuda.synchronize()
+    for i, res in enumerate(got):
+        assert cases[i % 2]["compare"](res, want[i % 2]) == 0.0, i

@@ -433,6 +433,57 @@ def test_chain_plain_equals_reference_chain_math(REF, case, rows):
         assert counts[0][-1] == 0 and not mask[-1].any()
 
 
+@pytest.mark.parametrize("n_live", [17, 29, 32])
+@pytest.mark.parametrize("ranges", [1, 2, 3])
+def test_chain_plain_at_32_lanes_matches_chain_math(REF, ranges, n_live):
+    """At ``live_p2`` = 32, where the loop K2 takes the reference's 32-slot
+    order (``columnar_ops.sum32_unroll``), the reference's ``_chain_math``
+    still sums left to right: A6's plain version (``tree_sum``) equals it
+    bit for bit, with every live lane found and 1-3 validate ranges that
+    keep most of them.  Four draws a case."""
+    total_p2 = 64
+    for seed in range(4):
+        rng = np.random.default_rng(100 * ranges + n_live + seed)
+        tier_pos = [[np.arange(total_p2, dtype=np.int64)]]
+        tier_b = [[(0, total_p2, 0)]]
+        idx = np.zeros(32, np.int64)
+        idx[:n_live] = rng.integers(0, total_p2, n_live)
+        pcols = []
+        for j in range(ranges):
+            valid = rng.random(32) < 0.95
+            if j % 2:
+                pcols.append((rng.integers(0, 100, 32, dtype=np.int64),
+                              valid, np.int64(2), np.int64(98)))
+            else:
+                pcols.append((rng.standard_normal(32), valid,
+                              np.float64(-3.0), np.float64(3.0)))
+        acols = [(rng.standard_normal(32) * 100.0, rng.random(32) < 0.9),
+                 (rng.integers(-9, 9, 32, dtype=np.int64),
+                  np.ones(32, bool))]
+        want = _reference_chain(REF, (tier_pos, tier_b, idx, n_live, pcols,
+                                      acols), total_p2, 32)
+        args = ([[torch.from_numpy(tier_pos[0][0][None, :])]],
+                np.asarray([[[0, total_p2, 0]]], np.int64),
+                torch.from_numpy(idx[None, :]),
+                np.asarray([n_live], np.int64),
+                [(torch.from_numpy(x[None, :]), torch.from_numpy(v[None, :]),
+                  np.asarray([lo]), np.asarray([hi]))
+                 for x, v, lo, hi in pcols],
+                [(torch.from_numpy(x[None, :]), torch.from_numpy(v[None, :]))
+                 for x, v in acols], total_p2, 32)
+        raw, mask = CH.chain_plain(*args)
+        n_cand, n_found, n_valid, wmask, wper = want
+        assert tuple(raw[0, :3]) == (int(n_cand), int(n_found),
+                                     int(n_valid))
+        assert int(n_found) == n_live and int(n_valid) > n_live // 2
+        assert np.array_equal(mask[0], np.asarray(wmask))
+        _, per_col = CH.split_raw(raw, [True, False], CH.N_COUNTS)
+        for (gs, gmn, gmx, gc), (s, mn, mx, c) in zip(per_col, wper):
+            assert int(gc[0]) == int(c)
+            for g, w in ((gs, s), (gmn, mn), (gmx, mx)):
+                assert repr(g[0].item()) == repr(np.asarray(w).item())
+
+
 # ---------------------------------------------------------------------------
 # A6 on the card, transcribed: stamped flags in a pooled buffer and the
 # row axis's fold order (tests/_torch_walk.py)

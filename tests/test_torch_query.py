@@ -6,8 +6,8 @@ the per-operator path of every chain (rung 3, the fused chain, has its
 own tests in ``tests/test_torch_plancache.py``).
 
 Rows must agree exactly under the differential harness's canonical form
-(float64 aggregate values within 1e-12 relative: the sum order differs),
-and so must the engines' accounting: ``rows_fallback``,
+(exact ``repr``, float64 aggregate values included: the port sums in the
+reference's order), and so must the engines' accounting: ``rows_fallback``,
 ``fallback_reasons``, ``rows_vectorized`` and ``rows_index_vectorized``.
 Seeded lifecycle schedules (insert, insert_batch, delete, flush, merge,
 crash_and_recover) replay the same operations in both packages.  The
@@ -17,7 +17,6 @@ shim that is removed again when this module's tests end.
 
 import contextlib
 import datetime as dt
-import math
 import random
 import sys
 import types
@@ -102,28 +101,17 @@ def _cpu():
 # ---------------------------------------------------------------------------
 
 def _canon(rows):
-    """``test_differential._canon`` with float values kept apart so they
-    can be compared within a tolerance."""
-    out = []
-    for r in rows:
-        items = sorted(r.items(), key=lambda kv: kv[0])
-        key = repr([(k, round(v, 9) if isinstance(v, float) else v)
-                    for k, v in items])
-        out.append((key, items))
-    return sorted(out, key=lambda e: e[0])
+    """``test_differential._canon``: each row's items sorted by key, by
+    exact ``repr``, the rows sorted."""
+    return sorted(repr(sorted(r.items(), key=lambda kv: kv[0]))
+                  for r in rows)
 
 
 def _assert_rows_agree(got, ref):
     cg, cr = _canon(got), _canon(ref)
     assert len(cg) == len(cr), (len(cg), len(cr))
-    for (_, ig), (_, ir) in zip(cg, cr):
-        assert [k for k, _ in ig] == [k for k, _ in ir]
-        for (k, g), (_, r) in zip(ig, ir):
-            if isinstance(r, float) and isinstance(g, float):
-                assert (math.isnan(g) and math.isnan(r)) or g == r or \
-                    abs(g - r) <= 1e-12 * max(abs(g), abs(r)), (k, g, r)
-            else:
-                assert repr(g) == repr(r), (k, g, r)
+    for g, r in zip(cg, cr):
+        assert g == r, (g, r)
 
 
 STAT_KEYS = ("rows_fallback", "fallback_reasons", "rows_vectorized",
@@ -265,16 +253,13 @@ def test_wide_range_aggregates_agree_with_reference(REF, wide_datasets, k,
     assert P_obs.snapshot().get(key, 0) > k0
 
 
-@pytest.mark.xfail(strict=True, reason=(
-    "open fault, ROADMAP.md section C.1: a float64 sum over 17 to 31 "
-    "rows differs from the reference's in its last bits"))
 @pytest.mark.parametrize("k", [9, 17])
 def test_wide_range_index_chain_small_partitions(REF, k):
     """The wide index-chain aggregate over 160 records (the tests above
     use 600): the per-operator path's K2 sums gathered batches of 17-31
-    survivors, which the reference pads to 32 and XLA sums in another
-    order.  Strict, so the fault's repair turns it into a failure to
-    flip."""
+    survivors, which the reference pads to 32 and sums in its 32-slot
+    order under all ``k`` predicate columns (U = 1 at 9, 4 at 17), though
+    the port folds those past 8 into one slot."""
     port, ref = wide_dataset(PORT, n=160), wide_dataset(REF, n=160)
     rows_p, _ = PORT.run_query(wide_plans(PORT.A, k)["index_chain"],
                                {"W": port}, vectorize=True)

@@ -337,6 +337,55 @@ def test_collective_merge_matches_numpy(op, merge, red, lanes):
     assert got_1.shape == (1,) and got_1[0] == red([2.5, -1.0, 4.0])
 
 
+@pytest.mark.parametrize("rows", [2, 3])
+@pytest.mark.parametrize("k", [1, 3, 5, 9, 17])
+def test_stacked_float64_sum_at_32_lanes_matches_agg_fn(REF, k, rows):
+    """Stacked K2's plain version at ``live_p2`` = 32, every slot bit for
+    bit against the reference's own stacked core (``_agg_fn`` on its
+    one-device mesh): its vmapped [R, 32] reduce sums each row left to
+    right, not in the loop path's 32-slot order (``columnar_ops.
+    sum32_unroll``), at every number of predicate columns."""
+    import jax
+    import torch
+    from repro.runtime import spmd as RS
+    from repro_torch.kernels import spmd_ops as SO
+    rng = np.random.default_rng(100 * k + rows)
+    n = 32
+    datas, valids, los, his = [], [], [], []
+    for j in range(k):
+        if j % 2:
+            datas.append(rng.integers(0, 100, (rows, n), dtype=np.int64))
+            los.append(np.full(rows, 3, np.int64))
+            his.append(np.full(rows, 97, np.int64))
+        else:
+            datas.append(rng.standard_normal((rows, n)))
+            los.append(np.full(rows, -3.0))
+            his.append(np.full(rows, 3.0))
+        valids.append(rng.random((rows, n)) < 0.97)
+    adatas = [rng.standard_normal((rows, n)) * 100.0,
+              rng.integers(-50, 50, (rows, n), dtype=np.int64)]
+    avalids = [rng.random((rows, n)) < 0.9, np.ones((rows, n), bool)]
+    fn = RS._agg_fn(RS.partition_mesh(1), k, 2, n)
+    with jax.enable_x64(True):
+        total, mask, per_col = jax.device_get(fn(
+            tuple(datas), tuple(valids), tuple(los), tuple(his),
+            tuple(adatas), tuple(avalids)))
+    pcols = [(torch.from_numpy(d), torch.from_numpy(v), lo, hi)
+             for d, v, lo, hi in zip(datas, valids, los, his)]
+    acols = [(torch.from_numpy(d), torch.from_numpy(v))
+             for d, v in zip(adatas, avalids)]
+    raw, pmask = SO.filter_aggregate_rows_plain(pcols, acols, rows, n)
+    assert np.array_equal(pmask, np.asarray(mask))
+    assert np.array_equal(raw[:, 0], np.asarray(total))
+    for j, (s, mn, mx, cnt) in enumerate(per_col):
+        got = raw[:, 1 + 4 * j:5 + 4 * j]
+        assert np.array_equal(got[:, 0], np.asarray(cnt))
+        for f, want in ((1, s), (2, mn), (3, mx)):
+            want = np.ascontiguousarray(want)
+            bits = want.view(np.int64) if want.dtype == np.float64 else want
+            assert np.array_equal(got[:, f], bits), (j, f)
+
+
 def test_merge_needs_an_active_mesh():
     with pytest.raises(RuntimeError, match="mesh"):
         SP.psum_merge(np.ones((2, 3)))
@@ -633,3 +682,57 @@ def test_rows_walk_transcription_equals_stacked_plain(rows, n):
                    n, [(int(m.sum()),) for m in mask])
     assert np.array_equal(mask, pmask)
     assert np.array_equal(raw, praw)
+
+
+@pytest.mark.parametrize("rows,n", [
+    (rows, n) for n in (592, 3 * 2048 + 16, 33 * 1024 + 16)
+    for rows in (1, 3, 4, 5, 8)] + [(1, 264 * 2048 + 4096),
+                                    (2, 264 * 2048 + 4096)])
+def test_k2s_walk_transcription_equals_stacked_plain(rows, n):
+    """The second stacked K2 design transcribed (``_torch_walk.k2s_walk``:
+    G grid blocks a row, each a range of logical blocks and their chunks;
+    blocks finishing in a random order, a ticket a chunk on its group of
+    32 node sums) equals its plain version (NaN equal to NaN: torch's
+    min / max give a NaN of their own bits) and, bit for bit, the first
+    design's transcription: int64, float64 with NaN and int32-code
+    columns, n off the 2,048-row chunk, off a group of 32 nodes and past
+    264 chunks (logical blocks of two), an empty row, and every group
+    folded once, by the block whose chunk completed it."""
+    import torch
+    from _torch_walk import GROUP_CHUNKS, k2s_grid, k2s_walk, rows_raw
+    from repro_torch.kernels import selfcheck as SC
+    from repro_torch.kernels import spmd_ops as SO
+    rng = np.random.default_rng(n + rows)
+    ts = rng.integers(0, 10**9, (rows, n))
+    xf = rng.normal(1e3, 3e2, (rows, n))
+    xf[rng.random((rows, n)) < 0.01] = np.nan
+    code = rng.integers(0, 50, (rows, n)).astype(np.int32)
+    valid = [rng.random((rows, n)) < 0.9 for _ in range(3)]
+    if rows > 1:
+        valid[2][-1] = False                     # an empty row
+    lo_t = 10**8 + 10**7 * np.arange(rows)
+    hi_t = np.full(rows, 8 * 10**8)
+    pcols = [(torch.from_numpy(ts), torch.from_numpy(valid[0]), lo_t, hi_t)]
+    acols = [(torch.from_numpy(ts), torch.from_numpy(valid[2])),
+             (torch.from_numpy(xf), torch.from_numpy(valid[1])),
+             (torch.from_numpy(code), torch.from_numpy(valid[2]))]
+    praw, pmask = SO.filter_aggregate_rows_plain(pcols, acols, rows, n)
+    mask = valid[0] & (ts >= lo_t[:, None]) & (ts <= hi_t[:, None])
+    cols = [(x.numpy(), v.numpy()) for x, v in acols]
+    counts = [(int(m.sum()),) for m in mask]
+    raw, walks = k2s_walk(mask, cols, rows, n, counts, seed=n + rows)
+    assert SC.raw_compare((raw, mask), (praw, pmask), [6, 7, 8]) == 0.0
+    assert np.array_equal(raw, rows_raw(mask, cols, rows, n, counts))
+    chunks = -(-n // 2048)
+    per, G = k2s_grid(rows, n)
+    assert G * rows <= 264 + rows and per * G >= min(chunks, 264)
+    for took, finished, tickets in walks:
+        assert sorted(c for t in took for c in t) == list(range(chunks))
+        want = [min(GROUP_CHUNKS, chunks - g * GROUP_CHUNKS)
+                for g in range(-(-chunks // GROUP_CHUNKS))]
+        for lv, (fin, tk) in enumerate(zip(finished, tickets)):
+            assert sorted(fin) == list(range(len(want))), lv
+            assert [int(t) for t in tk] == want, lv
+            want = [min(32, len(want) - g * 32)
+                    for g in range(-(-len(want) // 32))]
+        assert len(tickets[-1]) == 1
