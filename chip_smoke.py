@@ -36,7 +36,16 @@ path on one CUDA device and checks them:
               full scan; ``FuzzyJoin.run`` on table 3's message tags and
               on clustered records (A7, and K6 past a 2**15 vocabulary),
               checked against the per-pair verify loop
-  4d. serve   deepseek-67b at its published widths, depth cut to 8 layers,
+  4d. feeds   the serving harness (``repro_torch.serve``): 4 feeds
+              ingesting 1,000,000 records through ``insert_batch`` (K3
+              merges) into 4 partitions with an index on val, 4 harness
+              query workers, and 2 threads running an index range select
+              (A6 with the plan cache on, K4 with it off), an exact
+              skip-index aggregate (K2) and a skip-index select (K1) over
+              pinned snapshots, each checked against numpy; a checkpoint
+              and a crash with replay on the way; zero torn reads and lost
+              acks, one recovery and the exact final key set checked
+  4e. serve   deepseek-67b at its published widths, depth cut to 8 layers,
               float32 weights from a seeded generator: 8 requests of 512
               prompt tokens through one prefill (K7, K8), then 319 greedy
               decode steps on the flat cache and, fed the same tokens, on
@@ -435,7 +444,7 @@ def clustered_records(n_records, vocab_size, noise, seed=7):
 
 
 def fuzzy_phase(ds, rec):
-    """Phase 4b: the fuzzy query path on the ingested users.  Returns
+    """Phase 4c: the fuzzy query path on the ingested users.  Returns
     K6's launches split by caller: the fuzzy selects and probe, and the
     FuzzyJoins."""
     import torch
@@ -539,6 +548,270 @@ def fuzzy_phase(ds, rec):
 
 
 # ---------------------------------------------------------------------------
+# the feeds phase: the serving harness ingesting through feeds while query
+# threads run on the card (src/repro_torch/serve, src/repro_torch/data)
+# ---------------------------------------------------------------------------
+
+# 4 ingest lanes of 250,000 records (the harness's _default_record: val =
+# pk * 2654435761 mod 100003), 4 partitions flushing at half TinySocial's
+# 65,536 so flushes and K3 merges keep running while the queries run
+FEEDS = {"partitions": 4, "flush_threshold": 32_768, "merge_k": 4,
+         "n_ingest": 4, "n_query": 4, "pump_batch": 1024, "queue_depth": 8,
+         "records_per_lane": 250_000, "checkpoint_at": 400_000,
+         "crash_at": 700_000, "query_threads": 2, "limit_s": 600}
+FEEDS_PATH = ("sorted_intersect_mask", "range_mask", "fused_filter_aggregate",
+              "t_occurrence_mask", "fused_index_chain")
+FEED_QUERIES = ("feed_index_range", "feed_range_aggregate",
+                "feed_skip_select")
+FEED_KINDS = ("feed_index_range (plan cache on)",
+              "feed_index_range (plan cache off)", "feed_range_aggregate",
+              "feed_skip_select")
+
+
+def feed_plans(A, pk_lo):
+    """The feeds phase's three queries: an index range select on val (~1%
+    of the rows: A6, or K4 with the plan cache off), an exact skip-index
+    aggregate on val (~10%: K2) and a skip-index select of 4,096
+    consecutive pks (K1)."""
+    return {
+        "feed_index_range": A.select(
+            A.scan("Feeds"), pred=lambda r: 0 <= r["val"] <= 999,
+            fields=["val"], ranges={"val": (0, 999)}),
+        "feed_range_aggregate": A.aggregate(
+            A.select(A.scan("Feeds"), pred=lambda r: 0 <= r["val"] <= 9999,
+                     fields=["val"], ranges={"val": (0, 9999)},
+                     ranges_exact=True, hints=["skip-index"]),
+            {"cnt": ("count", "*"), "avg_pk": ("avg", "pk")}),
+        "feed_skip_select": A.select(
+            A.scan("Feeds"), pred=lambda r: pk_lo <= r["pk"] <= pk_lo + 4095,
+            fields=["pk"], ranges={"pk": (pk_lo, pk_lo + 4095)},
+            hints=["skip-index"]),
+    }
+
+
+def feed_oracle(name, rows, pks, pk_lo):
+    """Check one concurrent query's rows against numpy over the pks of the
+    snapshot it ran on, val recomputed from pk."""
+    import numpy as np
+    val = (pks * 2654435761) % 100003
+    if name == "feed_index_range":
+        want = pks[val <= 999]
+    elif name == "feed_skip_select":
+        want = pks[(pks >= pk_lo) & (pks <= pk_lo + 4095)]
+    else:
+        sel = pks[val <= 9999]
+        want_avg = int(sel.sum()) / sel.size if sel.size else None
+        check(len(rows) == 1 and rows[0]["cnt"] == sel.size
+              and rows[0]["avg_pk"] == want_avg,
+              f"{name}: {rows} against count {sel.size} avg {want_avg}")
+        return
+    check(sorted(r["pk"] for r in rows) == sorted(want.tolist()),
+          f"{name}: {len(rows)} rows against {want.size}")
+    check(all(r["val"] == (r["pk"] * 2654435761) % 100003 for r in rows),
+          f"{name}: a row's val is not its pk's")
+
+
+def feeds_phase(seed, card, sizes=FEEDS):
+    """Phase 4d: ``ServeHarness`` (4 ingest lanes through feeds, 4 query
+    workers) on a ``PartitionedDataset`` with a B+-tree index on val,
+    beside ``query_threads`` threads that pin a snapshot and run the feed
+    queries through ``run_query(..., vectorize=True)``, each checked
+    against numpy over that snapshot; the index selects run one at a time
+    with the plan cache on and off in turn (A6, then K4).  Drives
+    ``start()``, a ``checkpoint()``, a ``crash_and_recover()`` (no query
+    thread runs across it) and ``stop()``.  A dead pump or sink, a query
+    error or a wrong row fails the phase.  ``sizes``: ``FEEDS``, or
+    smaller for a rehearsal on the CPU."""
+    import threading
+    import numpy as np
+    import torch
+    from repro_torch import obs
+    from repro_torch.columnar import plancache
+    from repro_torch.core import adm, algebra
+    from repro_torch.core.lsm import TieredMergePolicy
+    from repro_torch.serve import ServeHarness
+    from repro_torch.storage.dataset import PartitionedDataset
+    from repro_torch.storage.query import run_query
+    z = sizes
+    rt = adm.RecordType("R", (adm.Field("pk", adm.INT64),
+                              adm.Field("val", adm.INT64)), open=True)
+    ds = PartitionedDataset("Feeds", rt, "pk", z["partitions"],
+                            z["flush_threshold"],
+                            merge_policy=TieredMergePolicy(k=z["merge_k"]))
+    ds.create_index("val")
+    h = ServeHarness(ds, n_ingest=z["n_ingest"], n_query=z["n_query"],
+                     pump_batch=z["pump_batch"], queue_depth=z["queue_depth"],
+                     records_per_lane=z["records_per_lane"])
+    total = z["n_ingest"] * z["records_per_lane"]
+    deaths, errors = [], []
+    done = threading.Event()
+    # the query threads each hold a slot for a query; the crash clears
+    # ``open_`` (no new query starts) and takes every slot
+    slots = threading.Semaphore(z["query_threads"])
+    open_ = threading.Event()
+    open_.set()
+    lat = {q: [] for q in FEED_QUERIES}
+    ran = {}
+    lock = threading.Lock()
+    index_lock = threading.Lock()
+    index_runs = [0]
+
+    def query_loop(t):
+        rng = np.random.default_rng(seed + t)
+        i = t
+        try:
+            while not done.is_set():
+                name = FEED_QUERIES[i % len(FEED_QUERIES)]
+                i += 1
+                open_.wait()
+                with slots:
+                    snap = ds.pin()
+                    try:
+                        pks = np.concatenate(
+                            [snap.partition_pk_array(p)
+                             for p in range(ds.num_partitions)]
+                        ).astype(np.int64)
+                        if not pks.size:       # nothing acked yet
+                            i -= 1
+                            continue
+                        lo = int(rng.integers(0, max(1, int(pks.max(
+                            initial=0)) - 4095)))
+                        plan = feed_plans(algebra, lo)[name]
+                        if name == "feed_index_range":
+                            # the plan cache is global: one index select at
+                            # a time, turns on and off (the other plans
+                            # take no index)
+                            with index_lock:
+                                cache = index_runs[0] % 2 == 0
+                                index_runs[0] += 1
+                                plancache.set_enabled(cache)
+                                t0 = time.perf_counter()
+                                rows, _ = run_query(plan, {"Feeds": snap},
+                                                    vectorize=True)
+                                dt_s = time.perf_counter() - t0
+                        else:
+                            t0 = time.perf_counter()
+                            rows, _ = run_query(plan, {"Feeds": snap},
+                                                vectorize=True)
+                            dt_s = time.perf_counter() - t0
+                        feed_oracle(name, rows, pks, lo)
+                    finally:
+                        snap.release()
+                key = name + (f" (plan cache {'on' if cache else 'off'})"
+                              if name == "feed_index_range" else "")
+                with lock:
+                    lat[name].append(dt_s)
+                    ran[key] = ran.get(key, 0) + 1
+        except BaseException as e:       # noqa: BLE001
+            errors.append(f"query thread {t}: {type(e).__name__}: {e}")
+
+    def hook(a):
+        deaths.append(f"{a.thread.name}: {a.exc_type.__name__}: "
+                      f"{a.exc_value}")
+    old_hook = threading.excepthook
+    threading.excepthook = hook
+    snap0 = obs.snapshot()
+    t_start = time.perf_counter()
+    plancache.set_enabled(True)
+    queriers = [threading.Thread(target=query_loop, args=(t,),
+                                 name=f"feed-query-{t}", daemon=True)
+                for t in range(z["query_threads"])]
+    try:
+        h.start()
+        for q in queriers:
+            q.start()
+        did_ckpt = did_crash = False
+        marks = {}
+        while True:
+            check(not deaths, f"feeds: a worker thread died: {deaths}")
+            check(not errors, f"feeds: {errors}")
+            check(time.perf_counter() - t_start < z["limit_s"],
+                  f"feeds: not done in {z['limit_s']} s")
+            with h._ack_lock:
+                acked = sum(len(a) for a in h.acked)
+            if not did_ckpt and acked >= z["checkpoint_at"]:
+                h.checkpoint()
+                did_ckpt = True
+                marks["checkpoint"] = (acked, time.perf_counter() - t_start)
+            if did_ckpt and not did_crash and acked >= z["crash_at"]:
+                open_.clear()
+                for _ in range(z["query_threads"]):
+                    slots.acquire()
+                try:
+                    h.crash_and_recover()
+                finally:
+                    for _ in range(z["query_threads"]):
+                        slots.release()
+                    open_.set()
+                did_crash = True
+                marks["crash"] = (acked, time.perf_counter() - t_start)
+            with lock:
+                kinds = sum(ran.get(k, 0) > 0 for k in FEED_KINDS)
+            if did_crash and h.exhausted() and kinds == len(FEED_KINDS):
+                break
+            time.sleep(0.01)
+        done.set()
+        for q in queriers:
+            q.join(timeout=120)
+        check(not any(q.is_alive() for q in queriers),
+              "feeds: a query thread did not stop")
+        check(not deaths, f"feeds: a worker thread died: {deaths}")
+        check(not errors, f"feeds: {errors}")
+        h.stop()
+    finally:
+        done.set()
+        open_.set()
+        threading.excepthook = old_hook
+        plancache.set_enabled(True)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t_start
+    rep = h.report()
+    check(not deaths, f"feeds: a worker thread died: {deaths}")
+    check(rep.torn_reads == 0 and rep.lost_acks == 0
+          and rep.lost_acked_final == 0,
+          f"feeds: torn {rep.torn_reads} lost {rep.lost_acks} lost final "
+          f"{rep.lost_acked_final}")
+    check(not rep.query_errors, f"feeds: query errors {rep.query_errors}")
+    check(rep.recoveries == 1, f"feeds: recoveries {rep.recoveries}")
+    final = np.concatenate([ds.partition_pk_array(p)
+                            for p in range(ds.num_partitions)])
+    check(final.size == total and np.array_equal(np.sort(final),
+                                                 np.arange(total)),
+          f"feeds: the final pk set is not range({total})")
+    check(all(ran.get(k, 0) > 0 for k in FEED_KINDS),
+          f"feeds: a query never ran: {ran}")
+    snap1 = obs.snapshot()
+
+    def delta(k):
+        return snap1.get(k, 0) - snap0.get(k, 0)
+
+    def ms(xs, q):
+        return float(np.percentile(np.asarray(xs) * 1e3, q)) if xs else None
+    print(f"feeds: on {card}: {total} records through {z['n_ingest']} "
+          f"feeds into "
+          f"{z['partitions']} partitions (flush threshold "
+          f"{z['flush_threshold']}, tiered k = {z['merge_k']}, an index on "
+          f"val) beside {z['n_query']} harness query workers and "
+          f"{z['query_threads']} query threads; phase {seconds} s (host "
+          f"clock); checkpoint at {marks['checkpoint']} and crash at "
+          f"{marks['crash']} (acked records, s)")
+    print(f"feeds: ingest {rep.ingest_rate} records/s acked ({rep.ingest_acked} "
+          f"distinct acked in {rep.duration_s} s); harness queries "
+          f"{rep.queries}, p50 {rep.query_p50_ms} ms p99 "
+          f"{rep.query_p99_ms} ms; phase p99 ms "
+          f"{json.dumps(rep.phase_p99_ms)}; torn {rep.torn_reads} lost "
+          f"{rep.lost_acks} lost final {rep.lost_acked_final} recoveries "
+          f"{rep.recoveries}")
+    print(f"feeds: concurrent queries {json.dumps(ran)}, every one "
+          f"checked against numpy over its snapshot; latency ms (host "
+          f"clock) " + "; ".join(
+              f"{q} p50 {ms(v, 50)} p99 {ms(v, 99)}" for q, v in lat.items()))
+    print(f"feeds: lsm flushes {delta('lsm.flushes')} merges "
+          f"{delta('lsm.merges')}; final pk set range({total})")
+
+
+# ---------------------------------------------------------------------------
 # the model serving path (src/repro_torch/launch/serve.py)
 # ---------------------------------------------------------------------------
 
@@ -562,7 +835,7 @@ def _logit_err(got, want):
 
 
 def serve_phase(seed):
-    """Phase 4c; returns the launch counts of the main serve run (the
+    """Phase 4e; returns the launch counts of the main serve run (the
     prefill and both decode runs)."""
     import dataclasses
     import torch
@@ -919,7 +1192,20 @@ def main() -> int:
     print(f"fuzzy: K4 launches by threshold and route {json.dumps(k4)}")
     check(k4["T>1 sorted"] > 0 and k4["T>1 scatter"] == 0,
           f"fuzzy K4 launches at T > 1 not all by the sorted kernel: {k4}")
-    # -- 4d. serve path ----------------------------------------------------
+    # -- 4d. feeds phase ---------------------------------------------------
+    selfcheck.reset_launch_counts()
+    t0 = time.perf_counter()
+    feeds_phase(args.seed, card)
+    feeds_counts = selfcheck.launch_counts()
+    a6_clears["feeds"] = a6.clears
+    print(f"feeds: launches {json.dumps(feeds_counts)}; A6 dispatches that "
+          f"zeroed the flags first {a6.clears}; phase took "
+          f"{time.perf_counter() - t0} s (host clock)")
+    for k in FEEDS_PATH:
+        check(feeds_counts[k] > 0, f"kernel {k} never launched in the "
+                                   f"feeds phase")
+
+    # -- 4e. serve path ----------------------------------------------------
     t0 = time.perf_counter()
     serve_counts = serve_phase(args.seed)
     print(f"serve: phase took {time.perf_counter() - t0} s (host clock)")
@@ -940,11 +1226,12 @@ def main() -> int:
                  "replaces": meta["replaces"],
                  "launches": (counts[name] + rung3_counts[name]
                               + rung4_counts[name] + fuzzy_counts[name]
-                              + serve_counts[name]),
+                              + feeds_counts[name] + serve_counts[name]),
                  "launches_columnar": counts[name],
                  "launches_rung3": rung3_counts[name],
                  "launches_rung4": rung4_counts[name],
                  "launches_fuzzy": fuzzy_counts[name],
+                 "launches_feeds": feeds_counts[name],
                  "launches_serve": serve_counts[name],
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                  "ms_timer": r["ms_timer"],

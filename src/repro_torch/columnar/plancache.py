@@ -37,6 +37,7 @@ the reference's chain does.
 
 from __future__ import annotations
 
+import threading
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -65,25 +66,28 @@ class PlanCache:
         self._keys: set = set()
         self._hits = 0
         self._misses = 0
+        self._lock = threading.Lock()       # concurrent queries note too
         self.enabled = True
 
     def note(self, key: Tuple) -> bool:
         """Record one fused dispatch under plan shape ``key``; True if the
         shape was already compiled (a cache hit)."""
-        hit = key in self._keys
-        if hit:
-            self._hits += 1
-            _HITS.inc()
-        else:
-            self._keys.add(key)
-            self._misses += 1
-            _MISSES.inc()
+        with self._lock:
+            hit = key in self._keys
+            if hit:
+                self._hits += 1
+            else:
+                self._keys.add(key)
+                self._misses += 1
+            entries = len(self._keys)
+        (_HITS if hit else _MISSES).inc()
         # set (not inc) every note: the gauge resurvives obs.reset()
-        _ENTRIES.set(len(self._keys))
+        _ENTRIES.set(entries)
         return hit
 
     def totals(self) -> Tuple[int, int]:
-        return self._hits, self._misses
+        with self._lock:
+            return self._hits, self._misses
 
     def entry_count(self) -> int:
         return len(self._keys)
@@ -92,7 +96,8 @@ class PlanCache:
         """Forget seen plan shapes (metrics accounting only — the
         kernels' seen shapes persist, so re-seen shapes re-warm without a
         retrace)."""
-        self._keys.clear()
+        with self._lock:
+            self._keys.clear()
         _ENTRIES.set(0)
 
 

@@ -138,7 +138,8 @@ def unpack(host: np.ndarray, rows: int, w: int, n: int
 _MAX_STAMP = 255
 # per (device, stream): the flag buffer A6's dispatches stamp (uint8,
 # grown to the largest [R, fields, total_p2] seen) and the last stamp
-# given; every byte is 0 or an earlier stamp since the buffer was zeroed
+# given; every byte is 0 or an earlier stamp since the buffer was zeroed.
+# Taken and used only under the stream's lock (``ops.stream_lock``)
 _FLAGS: Dict[Tuple[int, int], list] = {}
 
 
@@ -146,10 +147,9 @@ def _flag_buffer(dev: torch.device, nbytes: int
                  ) -> Tuple[torch.Tensor, int, int]:
     """(buffer, stamp, clear_bytes) for one dispatch: the next stamp in 1
     .. 255, and the bytes to zero first (the whole buffer when it is new
-    or the stamp wraps, else 0)."""
-    key = (dev.index if dev.index is not None else
-           torch.cuda.current_device(),
-           torch.cuda.current_stream(dev).cuda_stream)
+    or the stamp wraps, else 0).  The caller holds the stream's lock from
+    here through the C call that stamps and reads the buffer."""
+    key = _ops.stream_key(dev)
     got = _FLAGS.get(key)
     if got is None or got[0].numel() < nbytes:
         got = _FLAGS[key] = [torch.empty(nbytes, dtype=torch.uint8,
@@ -167,9 +167,11 @@ def chain_cuda(tiers: Sequence[Sequence[torch.Tensor]], abo: np.ndarray,
     the pooled flags first when they are new or their stamp wraps
     (counted in ``chain_cuda.clears``); with more than 8 validate ranges,
     one stacked K1 launch before it (``columnar_ops.fold_extra_preds``).
-    The per-row scalars go up in one copy.  Returns the packed result on the card (:func:`unpack`'s layout:
-    counts and column scalars, then the mask), which comes back in one
-    copy."""
+    The per-row scalars go up in one copy.  The stamp and the C call hold
+    the stream's lock, so dispatches from concurrent threads do not
+    interleave their launches.  Returns the packed result on the card
+    (:func:`unpack`'s layout: counts and column scalars, then the mask),
+    which comes back in one copy."""
     dev = idx.device
     rows, nf, m = int(idx.shape[0]), len(tiers), len(aggs)
     if not (idx.is_cuda and idx.dtype == torch.int64
@@ -206,7 +208,6 @@ def chain_cuda(tiers: Sequence[Sequence[torch.Tensor]], abo: np.ndarray,
         *[int(t.dtype == torch.int32) for t in flat])
     lens = (np.clip(abo[:, :, 1], 0, None) - np.clip(abo[:, :, 0], 0, None))
     max_len = int(lens.max()) if lens.size else 0
-    flags, stamp, clear = _flag_buffer(dev, rows * nf * total_p2)
     pcols = [(d, v, None, None) for d, v, _lo, _hi in preds]
     acols = [(d, v, None, None) for d, v in aggs]
     pd, ad = CO._descs(pcols), CO._descs(acols)
@@ -225,16 +226,21 @@ def chain_cuda(tiers: Sequence[Sequence[torch.Tensor]], abo: np.ndarray,
                 CO._L, CO._I, CO._I, CO._L, CO._P, CO._I, CO._P, CO._I,
                 CO._L, CO._I, CO._I, CO._I, CO._P, CO._P, CO._P, CO._P,
                 CO._P, CO._P, CO._L, CO._P, CO._P, CO._P])
-    rc = f(ctypes.cast(pos_arr, CO._P), ctypes.cast(width, CO._P),
-           ctypes.cast(field, CO._P), ctypes.cast(is32, CO._P), nt, abo_p,
-           max_len, flags.data_ptr(), clear, stamp, nf, total_p2,
-           ctypes.cast(pd, CO._P), len(pcols), ctypes.cast(ad, CO._P), m,
-           live_p2, rows, CO.agg_blocks(live_p2), int(vec),
-           bounds_p if nb else None, idx.data_ptr(), nlive_p,
-           part.data_ptr(), ticket.data_ptr(), nodes.data_ptr(), stride,
-           out.data_ptr(), mask.data_ptr(), _ops.stream(idx))
-    chain_cuda.launches += 1
-    chain_cuda.clears += int(clear > 0)
+    # the stamp and the launches that write and read it, as one critical
+    # section: another thread's scatter between this one's launches would
+    # overwrite its flags
+    with _ops.stream_lock(dev):
+        flags, stamp, clear = _flag_buffer(dev, rows * nf * total_p2)
+        rc = f(ctypes.cast(pos_arr, CO._P), ctypes.cast(width, CO._P),
+               ctypes.cast(field, CO._P), ctypes.cast(is32, CO._P), nt,
+               abo_p, max_len, flags.data_ptr(), clear, stamp, nf, total_p2,
+               ctypes.cast(pd, CO._P), len(pcols), ctypes.cast(ad, CO._P), m,
+               live_p2, rows, CO.agg_blocks(live_p2), int(vec),
+               bounds_p if nb else None, idx.data_ptr(), nlive_p,
+               part.data_ptr(), ticket.data_ptr(), nodes.data_ptr(), stride,
+               out.data_ptr(), mask.data_ptr(), _ops.stream(idx))
+    _ops.count(chain_cuda)
+    _ops.count(chain_cuda, "clears", int(clear > 0))
     _ops.check(rc, "fused_index_chain")
     return res
 

@@ -32,6 +32,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import heapq
+import threading
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -53,6 +54,7 @@ __all__ = ["range_mask", "fused_filter_aggregate", "sorted_intersect_mask",
 
 _TRACES = {"n": 0}
 _SEEN: set = set()
+_SEEN_LOCK = threading.Lock()
 
 
 def trace_count() -> int:
@@ -63,10 +65,11 @@ def note_shape(kernel: str, *key: Any) -> bool:
     """Count the first sighting of a (kernel, pow2 shape, dtypes) key;
     True if it was one."""
     k = (kernel,) + key
-    if k in _SEEN:
-        return False
-    _SEEN.add(k)
-    _TRACES["n"] += 1
+    with _SEEN_LOCK:
+        if k in _SEEN:
+            return False
+        _SEEN.add(k)
+        _TRACES["n"] += 1
     _record_retrace()
     return True
 
@@ -339,7 +342,7 @@ def range_mask_cuda(cols: Sequence[Col], n: int) -> torch.Tensor:
     f = _fn("rt_range_mask", [_P, _I, _L, _P, _P])
     rc = f(ctypes.cast(_descs(cols), _P), len(cols), n, out.data_ptr(),
            _ops.stream(out))
-    range_mask_cuda.launches += 1
+    _ops.count(range_mask_cuda)
     _ops.check(rc, "range_mask")
     return out
 
@@ -398,7 +401,7 @@ def range_mask_rows_cuda(pcols: Sequence[Tuple], rows: int, n: int
     f = _fn("rt_range_mask_rows", [_P, _I, _L, _I, _P, _P, _P])
     rc = f(ctypes.cast(_descs(device_cols(pcols)), _P), len(pcols), n,
            rows, bounds.data_ptr(), out.data_ptr(), _ops.stream(out))
-    range_mask_rows_cuda.launches += 1
+    _ops.count(range_mask_rows_cuda)
     _ops.check(rc, "range_mask (stacked)")
     return out
 
@@ -428,28 +431,30 @@ def tree_node_stride(n: int) -> int:
 # (and of its stacked form and A6's second pass, which run the same kernel
 # with a row axis), a ticket a row, which the kernel leaves at 0, and the
 # float64 node arrays [rows, MAX_COLS, node stride] (grown to the most
-# rows and the largest n seen); launches on one stream run in order, so
-# they share them
+# rows and the largest n seen); launches on one stream run in order, and
+# each kernel uses them within itself only, so they share them, whichever
+# thread launches
 _AGG_SCRATCH: Dict[Tuple[int, int], List[torch.Tensor]] = {}
+# taken while a pool of per-stream scratch is looked up or grown
+SCRATCH_LOCK = threading.Lock()
 
 
 def _agg_scratch(dev: torch.device, stride: int, rows: int = 1
-                 ) -> List[torch.Tensor]:
-    key = (dev.index if dev.index is not None else
-           torch.cuda.current_device(),
-           torch.cuda.current_stream(dev).cuda_stream)
-    got = _AGG_SCRATCH.get(key)
-    if got is None or got[1].numel() < rows:
-        got = _AGG_SCRATCH[key] = [
-            torch.empty((rows, _PART_SLOTS, _AGG_MAX_BLOCKS),
-                        dtype=torch.int64, device=dev),
-            torch.zeros(rows, dtype=torch.int32, device=dev),
-            torch.empty(0 if got is None else got[2].numel(),
-                        dtype=torch.float64, device=dev)]
-    if got[2].numel() < rows * _MAX_COLS * stride:
-        got[2] = torch.empty(rows * _MAX_COLS * stride,
-                             dtype=torch.float64, device=dev)
-    return got
+                 ) -> Tuple[torch.Tensor, ...]:
+    key = _ops.stream_key(dev)
+    with SCRATCH_LOCK:
+        got = _AGG_SCRATCH.get(key)
+        if got is None or got[1].numel() < rows:
+            got = _AGG_SCRATCH[key] = [
+                torch.empty((rows, _PART_SLOTS, _AGG_MAX_BLOCKS),
+                            dtype=torch.int64, device=dev),
+                torch.zeros(rows, dtype=torch.int32, device=dev),
+                torch.empty(0 if got is None else got[2].numel(),
+                            dtype=torch.float64, device=dev)]
+        if got[2].numel() < rows * _MAX_COLS * stride:
+            got[2] = torch.empty(rows * _MAX_COLS * stride,
+                                 dtype=torch.float64, device=dev)
+        return tuple(got)
 
 
 def fold_extra_preds(pcols: Sequence[Col],
@@ -494,7 +499,7 @@ def filter_aggregate_cuda(pcols: Sequence[Col], acols: Sequence[Col],
     rc = f(ctypes.cast(pd, _P), len(pcols), ctypes.cast(ad, _P), m, n,
            agg_blocks(n), int(vec), part.data_ptr(), ticket.data_ptr(),
            out.data_ptr(), nodes.data_ptr(), stride, u32, _ops.stream(out))
-    filter_aggregate_cuda.launches += 1
+    _ops.count(filter_aggregate_cuda)
     _ops.check(rc, "fused_filter_aggregate")
     return out
 
@@ -529,7 +534,7 @@ def sorted_intersect_cuda(keys: torch.Tensor, n: int,
     rc = f(keys.data_ptr(), n, cands.data_ptr(), cands.shape[0],
            int(keys.dtype == torch.float64), out.data_ptr(), out.shape[0],
            _ops.stream(out))
-    sorted_intersect_cuda.launches += 1
+    _ops.count(sorted_intersect_cuda)
     _ops.check(rc, "sorted_intersect_mask")
     return out
 

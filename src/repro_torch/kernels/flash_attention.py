@@ -107,7 +107,7 @@ def flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            DTYPES[q.dtype], B, H, KV, Sq, n, hd, ctypes.addressof(qs),
            ctypes.addressof(ks), ctypes.addressof(os_), int(bool(causal)),
            q_offset, 1.0 / math.sqrt(hd), gh, _ops.stream(q))
-    flash_cuda.launches += 1
+    _ops.count(flash_cuda)
     _ops.check(rc, "flash_attention")
     return out
 

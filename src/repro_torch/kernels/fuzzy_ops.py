@@ -196,7 +196,7 @@ def tocc_cuda(segs: Sequence[DevSeg], n: int, n_out: int, threshold: int,
         rc = f(ctypes.cast(descs, ctypes.c_void_p), len(segs), n, n_out,
                threshold, None if ext is None else ext.data_ptr(),
                out.data_ptr(), _ops.stream(out))
-        tocc_cuda.launches_sorted += 1
+        _ops.count(tocc_cuda, "launches_sorted")
     else:
         descs = (SegDesc * len(segs))()
         for d, s in zip(descs, segs):
@@ -208,8 +208,8 @@ def tocc_cuda(segs: Sequence[DevSeg], n: int, n_out: int, threshold: int,
         rc = f(ctypes.cast(descs, ctypes.c_void_p), len(segs), n, n_out,
                threshold, counts.data_ptr(), out.data_ptr(),
                _ops.stream(out))
-    tocc_cuda.launches += 1
-    tocc_cuda.launches_t1 += threshold == 1
+    _ops.count(tocc_cuda)
+    _ops.count(tocc_cuda, "launches_t1", int(threshold == 1))
     _ops.check(rc, "t_occurrence_mask")
     return out
 
@@ -334,7 +334,7 @@ def ed_cuda(cand: torch.Tensor, lens: torch.Tensor, q: torch.Tensor,
     rc = f(cand.data_ptr(), lens.data_ptr(), B, lp, q.data_ptr(), m, cap,
            int(vec), None if scratch is None else scratch.data_ptr(),
            out.data_ptr(), _ops.stream(out))
-    ed_cuda.launches += 1
+    _ops.count(ed_cuda)
     _ops.check(rc, "edit_distances")
     return out
 
@@ -406,7 +406,7 @@ def inter_cuda(a: torch.Tensor, alens: torch.Tensor,
     f = _fn("rt_set_intersect", [_P, _P, _L, _P, _L, _L, _P, _P])
     rc = f(a.data_ptr(), alens.data_ptr(), a.shape[1], b.data_ptr(),
            b.shape[1], P, out.data_ptr(), _ops.stream(out))
-    inter_cuda.launches += 1
+    _ops.count(inter_cuda)
     _ops.check(rc, "set_intersect_counts")
     return out
 
@@ -513,7 +513,7 @@ def popcount_cuda(bits: torch.Tensor, ai: torch.Tensor,
     f = _fn("rt_bitset_intersect", [_P, _L, _P, _P, _L, _P, _P])
     rc = f(bits.data_ptr(), bits.shape[1], ai.data_ptr(), bi.data_ptr(), P,
            out.data_ptr(), _ops.stream(out))
-    popcount_cuda.launches += 1
+    _ops.count(popcount_cuda)
     _ops.check(rc, "bitset_intersect_counts")
     return out
 

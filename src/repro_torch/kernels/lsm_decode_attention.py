@@ -132,7 +132,7 @@ def decode_partial_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rc = f(qf.data_ptr(), k.data_ptr(), v.data_ptr(), dt,
            acc.data_ptr(), m.data_ptr(), l.data_ptr(), B, H, KV, hd, Sc, n,
            C, chunk, 1.0 / math.sqrt(hd), _ops.stream(q))
-    decode_partial_cuda.launches += 1
+    _ops.count(decode_partial_cuda)
     _ops.check(rc, "lsm_decode_attention")
     return acc, m, l
 

@@ -29,12 +29,13 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 __all__ = ["set_device", "device", "target", "build", "lib", "check",
-           "stream", "BUILD_DIR", "NVCC_FLAGS"]
+           "stream", "stream_key", "stream_lock", "count", "BUILD_DIR",
+           "NVCC_FLAGS"]
 
 _DEVICE = ["cuda"]
 
@@ -155,3 +156,41 @@ def check(rc: int, name: str) -> None:
 def stream(t: torch.Tensor) -> ctypes.c_void_p:
     """PyTorch's current stream on the tensor's device, as a C pointer."""
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+# ---------------------------------------------------------------------------
+# threads: every thread launches on PyTorch's one current stream
+# ---------------------------------------------------------------------------
+
+def stream_key(dev: torch.device) -> Tuple[int, int]:
+    """(device index, current stream handle): the key of the scratch the
+    wrappers pool per device and stream."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    return idx, torch.cuda.current_stream(dev).cuda_stream
+
+
+_STREAM_LOCKS: Dict[Tuple[int, int], threading.Lock] = {}
+_STATE_LOCK = threading.Lock()
+
+
+def stream_lock(dev: torch.device) -> threading.Lock:
+    """The lock of ``dev``'s current stream.  A C call whose launches hand
+    pooled device state from one kernel to the next (A6: the scatter's
+    stamped flags, read by its second pass) holds it from taking that
+    state through the call, so no other thread's call of the same kind
+    lands between its launches.  ctypes releases the GIL during a call,
+    so without it two threads' launches interleave on the one stream."""
+    key = stream_key(dev)
+    lk = _STREAM_LOCKS.get(key)
+    if lk is None:
+        with _STATE_LOCK:
+            lk = _STREAM_LOCKS.setdefault(key, threading.Lock())
+    return lk
+
+
+def count(fn: Any, attr: str = "launches", k: int = 1) -> None:
+    """Add ``k`` to a wrapper's counter (``fn.launches`` and the like)
+    under one lock, so increments from concurrent threads are not
+    lost."""
+    with _STATE_LOCK:
+        setattr(fn, attr, getattr(fn, attr) + k)

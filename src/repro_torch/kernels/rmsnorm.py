@@ -71,7 +71,7 @@ def rmsnorm_cuda(x: torch.Tensor, w: torch.Tensor,
     C = cluster_size(N, d, x.dtype, x.data_ptr() % 16 == 0)
     rc = f(x.data_ptr(), DTYPES[x.dtype], w.data_ptr(), DTYPES[w.dtype],
            out.data_ptr(), N, d, eps, C, _ops.stream(x))
-    rmsnorm_cuda.launches += 1
+    _ops.count(rmsnorm_cuda)
     _ops.check(rc, "rmsnorm")
     return out
 

@@ -70,14 +70,13 @@ _GROUP_TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
 
 def _group_tickets(dev: torch.device, rows: int, stride: int
                    ) -> torch.Tensor:
-    key = (dev.index if dev.index is not None else
-           torch.cuda.current_device(),
-           torch.cuda.current_stream(dev).cuda_stream)
-    got = _GROUP_TICKETS.get(key)
-    if got is None or got.numel() < rows * stride:
-        got = _GROUP_TICKETS[key] = torch.zeros(rows * stride,
-                                                dtype=torch.int32,
-                                                device=dev)
+    key = _ops.stream_key(dev)
+    with CO.SCRATCH_LOCK:
+        got = _GROUP_TICKETS.get(key)
+        if got is None or got.numel() < rows * stride:
+            got = _GROUP_TICKETS[key] = torch.zeros(rows * stride,
+                                                    dtype=torch.int32,
+                                                    device=dev)
     return got
 
 
@@ -120,8 +119,9 @@ def filter_aggregate_rows_cuda(pcols: Sequence[Tuple],
            ticket.data_ptr(), gticket.data_ptr(), stride, out.data_ptr(),
            nodes.data_ptr(), stride, bounds.data_ptr(), mask.data_ptr(),
            _ops.stream(out))
-    filter_aggregate_rows_cuda.launches += 1
-    filter_aggregate_rows_cuda.launches_first += int(not vec or n % 16)
+    _ops.count(filter_aggregate_rows_cuda)
+    _ops.count(filter_aggregate_rows_cuda, "launches_first",
+               int(not vec or n % 16))
     _ops.check(rc, "fused_filter_aggregate (stacked)")
     return res
 
@@ -333,7 +333,7 @@ def exchange_cuda(send: torch.Tensor, lay: ExchangeLayout) -> torch.Tensor:
            lay.key_kind, lay.key_off, lay.ntiles, lay.warps,
            recv.data_ptr(), lay.recv_head, hist.data_ptr(), offs.data_ptr(),
            _ops.stream(send))
-    exchange_cuda.launches += 1
+    _ops.count(exchange_cuda)
     _ops.check(rc, "spmd_exchange")
     return recv
 
@@ -383,7 +383,7 @@ def merge_cuda(x: torch.Tensor, op: str) -> torch.Tensor:
                                  CO._P])
     rc = f(x.data_ptr(), x.shape[0], x.shape[1], _MERGE_DT[x.dtype],
            _MERGE_OPS[op], out.data_ptr(), _ops.stream(x))
-    merge_cuda.launches += 1
+    _ops.count(merge_cuda)
     _ops.check(rc, f"spmd_merge_{op}")
     return out
 

@@ -25,6 +25,10 @@ Span naming convention (``obs.span(name, **attrs)``):
                           component field (attrs: field)
   feed.pump.<feed>        one intake -> compute -> store cycle (attrs:
                           records)
+  serve.request           one profiled harness request (attrs: trace_id,
+                          kind, outcome, queue_wait_s, <phase>_s)
+  serve.phase.<phase>     one phase (pin, execute, result) of a profiled
+                          request
   bench.rep               one repetition inside benchmarks/_timing.timed
 
 Kernel spans are not opened per dispatch (too hot); instead
@@ -35,8 +39,12 @@ the kernel traffic of exactly the operator that triggered it.
 
 The metric *name* registry lives in ``docs/METRICS.md`` — one table per
 family (kernel.*, mesh.*, buffer_pool.*, plan_cache.*, lsm.*, feed.*,
-serve.*, obs.exporter.*), kept honest by ``tests/test_metrics_doc.py``,
-which fails if a workload emits a metric the doc doesn't list.
+serve.*, obs.exporter.*).  The names the feeds (``data/feeds``) and the
+serving harness (``serve/harness``) emit are also listed here, with
+their kinds, in :data:`FEED_SERVE_METRICS` (parametrized segments in the
+doc's placeholder form); ``tests/test_torch_serve.py`` fails if a
+harness run emits a ``feed.*`` or ``serve.*`` name it does not list, or
+if it lists one the doc does not.
 
 Executor-level accounting stays on ``storage/query.ExecStats`` (per-query
 scope): ``kernel_dispatches`` / ``h2d_bytes`` / ``d2h_bytes`` and
@@ -64,7 +72,35 @@ __all__ = ["metrics", "tracer", "export", "span", "enable", "disable",
            "to_chrome", "counter", "gauge", "histogram", "snapshot",
            "typed_snapshot", "reset", "record_dispatch", "record_retrace",
            "kernel_totals", "Span", "ExporterServer", "MetricsSampler",
-           "TimeSeriesRing", "render_prometheus", "serve_http"]
+           "TimeSeriesRing", "render_prometheus", "serve_http",
+           "FEED_SERVE_METRICS"]
+
+# every metric data/feeds and serve/harness emit: name -> kind
+FEED_SERVE_METRICS: Dict[str, str] = {
+    "feed.<feed>.records": "counter",
+    "feed.<feed>.batch_records": "histogram",
+    "feed.joint.<joint>.published": "counter",
+    "feed.joint.<joint>.dropped": "counter",
+    "feed.joint.<joint>.lag.<sub>": "gauge",
+    "feed.sink.<dataset>.records": "counter",
+    "feed.sink.<dataset>.batch_records": "histogram",
+    "feed.sink.<dataset>.backlog": "gauge",
+    "serve.ingest.acked": "counter",
+    "serve.admission.rejected": "counter",
+    "serve.admission.inflight": "gauge",
+    "serve.query.latency_s": "histogram",
+    "serve.query.torn_reads": "counter",
+    "serve.query.lost_acks": "counter",
+    "serve.recoveries": "counter",
+    "serve.queue_wait_s": "histogram",
+    "serve.phase.pin_s": "histogram",
+    "serve.phase.execute_s": "histogram",
+    "serve.phase.result_s": "histogram",
+    "serve.slo.attained": "counter",
+    "serve.slo.missed": "counter",
+    "serve.slo.rejected_deadline": "counter",
+    "serve.request.profiled": "counter",
+}
 
 # hot-path handles: resolved once so record_dispatch costs dict-free
 # increments on the totals plus one cached lookup per kernel name

@@ -1473,3 +1473,109 @@ def test_stacked_second_design_back_to_back(dev):
     torch.cuda.synchronize()
     for i, res in enumerate(got):
         assert cases[i % 2]["compare"](res, want[i % 2]) == 0.0, i
+
+
+# ---------------------------------------------------------------------------
+# concurrent threads on PyTorch's one current stream (the serving
+# harness's workers): each dispatch equals the same dispatch run serially
+# ---------------------------------------------------------------------------
+
+THREADS, REPS = 8, 64
+
+
+def _concurrently(cases, want):
+    """THREADS threads, released by one barrier, each queueing its cases'
+    ``run`` REPS times with no synchronize between calls, under a GIL
+    switch interval of 1 µs so the threads' Python and C calls interleave
+    as finely as they can; then each result's bytes against ``want``.
+    Returns the mismatches as (thread, rep, case)."""
+    import sys
+    import threading
+    barrier = threading.Barrier(THREADS)
+    got = [[] for _ in range(THREADS)]
+    errors = []
+
+    def body(t):
+        try:
+            barrier.wait()
+            for _rep in range(REPS):
+                for case in cases[t]:
+                    got[t].append(case["run"]())
+        except BaseException as e:        # noqa: BLE001
+            errors.append(e)
+
+    threads = [threading.Thread(target=body, args=(t,))
+               for t in range(THREADS)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not errors, errors[:3]
+    torch.cuda.synchronize()
+    k = len(cases[0])
+    return [(t, i // k, i % k) for t in range(THREADS)
+            for i, res in enumerate(got[t])
+            if not torch.equal(res.cpu(), want[t][i % k])]
+
+
+def _serial(case):
+    """One serial run of a case, held against its plain version; its
+    result on the host."""
+    got = case["run"]()
+    assert case["compare"](got, case["plain"]()) == 0, case["label"]
+    return got.cpu()
+
+
+def test_concurrent_chain_dispatches_equal_serial(dev):
+    """8 threads each dispatch A6 in mask mode and in aggregate mode 64
+    times on candidate sets of their own over one storage size, so their
+    probes flag overlapping slots of the one pooled flag buffer: 1,024
+    dispatches queued with no synchronize between them, four stamp
+    wraps.  Each result equals, bit for bit, the same dispatch run
+    serially (which equals the plain version), and no launch or clear
+    goes uncounted."""
+    from repro_torch.kernels import chain_ops as CH
+    cases = [[SC.a6_case(2, 3000, 2, 2, ["ts"], aggs, seed=100 * k + t,
+                         dev=dev)
+              for k, aggs in enumerate(([], ["id", "f64n"]))]
+             for t in range(THREADS)]
+    want = [[_serial(c) for c in pair] for pair in cases]
+    n0, c0 = CH.chain_cuda.launches, CH.chain_cuda.clears
+    bad = _concurrently(cases, want)
+    assert not bad, (len(bad), bad[:8])
+    assert CH.chain_cuda.launches - n0 == THREADS * REPS * 2
+    assert CH.chain_cuda.clears - c0 >= THREADS * REPS * 2 // 255
+
+
+@pytest.mark.parametrize("kernel", ["filter_aggregate",
+                                    "filter_aggregate_stacked",
+                                    "sorted_intersect"])
+def test_concurrent_kernel_dispatches_equal_serial(dev, kernel):
+    """K2, stacked K2 and K3 the same way: 8 threads, 64 launches each, on
+    inputs of their own; each result equals the serial one bit for bit
+    (K2's scratch and tickets, stacked K2's group tickets are pooled per
+    stream), and every launch is counted."""
+    def make(t):
+        if kernel == "filter_aggregate":
+            return SC.k2_case(70_001, ["ts"], ["id", "f64n"], seed=t,
+                              dev=dev)
+        if kernel == "filter_aggregate_stacked":
+            return SC.k2_rows_case(4, 1 << 16, ["ts"], ["id", "f64n"],
+                                   seed=t, dev=dev)
+        return SC.k3_case(20_000, 5_000, seed=t, dev=dev)
+    cases = [[make(t)] for t in range(THREADS)]
+    want = [[_serial(c) for c in one] for one in cases]
+    wrapper = SC.KERNELS[{"filter_aggregate": "fused_filter_aggregate",
+                          "filter_aggregate_stacked":
+                          "filter_aggregate_stacked",
+                          "sorted_intersect": "sorted_intersect_mask"}
+                         [kernel]]["wrapper"]
+    n0 = wrapper.launches
+    bad = _concurrently(cases, want)
+    assert not bad, (len(bad), bad[:8])
+    assert wrapper.launches - n0 == THREADS * REPS
