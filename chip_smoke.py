@@ -52,7 +52,19 @@ path on one CUDA device and checks them:
               the LSM-tiered cache (K7, K9); checks prefill-decode
               consistency, flat against tiered logits at every step, the
               LSM counters and the launch counts
-  5. a ``kernels`` JSON line (K7 and K9 with the cluster size each serve
+  4f. train   deepseek-67b at its published widths, depth cut to 2 layers,
+              float32: ``Trainer`` takes 6 AdamW steps on one repeated
+              global batch of 2 x 2048 tokens (remat "full": K7 and K8
+              forward, their backward kernels); checks the loss falls and
+              stays finite, each step's launch counts, that no plain
+              version runs, and one more step's gradients against the
+              same step through the plain versions on the card; profiles
+              a step; then crash and resume at reduced widths (a
+              checkpoint every 2 steps, a crash at step 4 of 6), whose
+              losses must equal the uninterrupted run's bit for bit
+  5. a ``kernels`` JSON line (K7-bwd and K8-bwd at the train step's
+     shapes beside autograd's backward of F.rms_norm and of
+     scaled_dot_product_attention; K7 and K9 with the cluster size each serve
      shape launched with, K8 with its float32 non-tensor bound beside the
      tensor-core one, K4's launches split by threshold and route, T > 1
      on the fuzzy path all by its sorted row-tile kernel, and K6's by
@@ -70,6 +82,8 @@ from __future__ import annotations
 import argparse
 import datetime as dt
 import json
+import math
+import os
 import subprocess
 import sys
 import time
@@ -77,6 +91,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+# cuBLAS's fixed workspace, which torch.use_deterministic_algorithms asks
+# for (phase 4f's crash and resume); read when cuBLAS starts, so set
+# before the first product
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -968,6 +986,302 @@ def serve_phase(seed):
 PROFILED_STEPS = 4
 
 
+# ---------------------------------------------------------------------------
+# the training path (src/repro_torch/training)
+# ---------------------------------------------------------------------------
+
+# deepseek-67b at its published widths, 2 of 95 layers (float32
+# parameters, gradients and AdamW moments take 49 GB of the card's 80;
+# 3 layers, 60 GB before activations, leave no margin), 2 x 2048 tokens a
+# step; the crash-and-resume part at reduced widths (a full-width
+# checkpoint would write ~37 GB a save)
+TRAIN = {"arch": "deepseek-67b", "layers": 2, "batch": 2, "seq": 2048,
+         "steps": 6, "crash_batch": 4, "crash_seq": 16}
+TRAIN_PATH = ("rmsnorm", "rmsnorm_bwd", "flash_attention",
+              "flash_attention_bwd")
+# Gradients of one step through the kernels against the same step through
+# the plain versions (autograd of rmsnorm_ref and flash_attention_ref), on
+# the card: both routes run the same cuBLAS products; K7's and K8's
+# forward and backward sum in other orders than the plain versions (K8's
+# forward in 3xTF32), ~1e-6 relative each, compounding through 2 layers
+# and the 102,400-way softmax to ~1e-5 of a leaf's largest gradient.
+# 1e-3 of it leaves 100x margin and still fails a wrong mask, a lost tile,
+# a wrong head or a missing gradient (errors of order 1 of it).
+GRAD_RTOL = 1e-3
+
+
+class _OracleCalls:
+    """Counts calls of the plain versions of K7 and K8 (forward and
+    backward) made through any repro_torch module while it is active: on
+    the card's training path there must be none."""
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_attention as FA
+        from repro_torch.kernels import ref
+        from repro_torch.kernels import rmsnorm as RN
+        watched = {"flash_attention_ref": ref.flash_attention_ref,
+                   "rmsnorm_ref": ref.rmsnorm_ref,
+                   "flash_plain": FA.flash_plain,
+                   "flash_bwd_plain": FA.flash_bwd_plain,
+                   "rmsnorm_bwd_plain": RN.rmsnorm_bwd_plain}
+        self.calls = dict.fromkeys(watched, 0)
+        by_id = {id(f): (n, f) for n, f in watched.items()}
+        self.patched = []
+        for mod in list(sys.modules.values()):
+            if not getattr(mod, "__name__", "").startswith("repro_torch"):
+                continue
+            for attr, val in list(vars(mod).items()):
+                if id(val) in by_id:
+                    name, f = by_id[id(val)]
+
+                    def counted(*a, _n=name, _f=f, **k):
+                        self.calls[_n] += 1
+                        return _f(*a, **k)
+                    setattr(mod, attr, counted)
+                    self.patched.append((mod, attr, val))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, val in self.patched:
+            setattr(mod, attr, val)
+        return False
+
+
+def _repeat_adaptor(seq, vocab, seed, batch):
+    """A synthetic token feed whose every global batch is the same
+    ``batch`` documents (documents 0 .. batch - 1 over and over)."""
+    from repro_torch.data.feeds import SyntheticTokenAdaptor
+
+    class Repeat(SyntheticTokenAdaptor):
+        def _record(self, i):
+            return super()._record(i % batch)
+    return Repeat(seq, vocab, seed)
+
+
+def _profile_step(tr):
+    """(host s, device busy s, device s by group, top kernels) of one
+    Trainer step under torch.profiler; groups: K7, K8 (forward and
+    backward), the cuBLAS products, the rest."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t = time.perf_counter()
+        tr.run(1)
+        wall = time.perf_counter() - t
+    rows = sorted(((e.self_device_time_total, e.key, e.count)
+                   for e in prof.key_averages()
+                   if e.self_device_time_total > 0), reverse=True)
+    groups = {"K7 (rmsnorm fwd+bwd)": 0.0, "K8 (flash fwd+bwd)": 0.0,
+              "cuBLAS products": 0.0, "other": 0.0}
+    for us, k, _ in rows:
+        low = k.lower()
+        g = ("K7 (rmsnorm fwd+bwd)" if "rmsnorm" in low else
+             "K8 (flash fwd+bwd)" if "flash" in low else
+             "cuBLAS products" if any(t in low for t in (
+                 "gemm", "cublas", "cutlass", "xmma", "sm90_")) else "other")
+        groups[g] += us / 1e6
+    return wall, sum(r[0] for r in rows) / 1e6, groups, rows
+
+
+def train_phase(seed):
+    """Phase 4f: returns the launch counts of the main training run (the
+    six Trainer steps at full width)."""
+    import dataclasses
+    import gc
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import model_ops, ref, selfcheck
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import OptimizerConfig, tree_leaves
+    from repro_torch.training.train_step import value_and_grad
+    from repro_torch.training.trainer import Trainer
+    c = TRAIN
+    B, S, steps = c["batch"], c["seq"], c["steps"]
+    cfg = dataclasses.replace(get_config(c["arch"]),
+                              num_layers=c["layers"])
+    L = cfg.num_layers
+    # remat "full": every layer's forward runs again inside the backward
+    per_step = {"rmsnorm": 2 * (2 * L) + 1, "rmsnorm_bwd": 2 * L + 1,
+                "flash_attention": 2 * L, "flash_attention_bwd": L}
+    total = dict.fromkeys(selfcheck.KERNELS, 0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    print(f"train: {torch.cuda.memory_allocated()} B of device memory held "
+          f"by earlier phases at the start; remat {cfg.remat_policy}")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        tr = Trainer(cfg, global_batch=B, seq_len=S, ckpt_dir=tmp,
+                     opt_cfg=OptimizerConfig(peak_lr=1e-3, warmup_steps=1,
+                                             decay_steps=steps), seed=seed)
+        tr.feed.adaptor = _repeat_adaptor(S, cfg.vocab_size, seed, B)
+        t = time.perf_counter()
+        tr.init_state()
+        torch.cuda.synchronize()
+        n_params = sum(x.numel() for x in tree_leaves(tr.params))
+        print(f"train: {cfg.name} d_model {cfg.d_model} heads "
+              f"{cfg.num_heads} kv_heads {cfg.num_kv_heads} head_dim "
+              f"{cfg.resolved_head_dim} d_ff {cfg.d_ff} vocab "
+              f"{cfg.vocab_size}, {L} of {get_config(c['arch']).num_layers}"
+              f" layers: {n_params} float32 parameters made on the card in "
+              f"{time.perf_counter() - t} s; global batch {B} x {S} "
+              f"tokens, the same batch every step")
+        secs = []
+        with _OracleCalls() as oracle:
+            for i in range(steps):
+                selfcheck.reset_launch_counts()
+                if i == steps - 1:
+                    wall, busy, groups, top = _profile_step(tr)
+                else:
+                    t = time.perf_counter()
+                    tr.run(1)
+                    secs.append(time.perf_counter() - t)
+                got = selfcheck.launch_counts()
+                for k, n in per_step.items():
+                    check(got[k] == n, f"train step {i + 1}: {k} launched "
+                                       f"{got[k]} times, expected {n}")
+                for k, n in got.items():
+                    total[k] += n
+        check(not any(oracle.calls.values()),
+              f"train: plain versions ran on the card: {oracle.calls}")
+        losses = [h["loss"] for h in tr.history]
+        print(f"train: losses {losses}; grad_norm "
+              f"{[h['grad_norm'] for h in tr.history]}; lr "
+              f"{[h['lr'] for h in tr.history]}")
+        check(all(math.isfinite(x) for x in losses),
+              f"train: a loss is not finite: {losses}")
+        check(losses[-1] < losses[0],
+              f"train: the loss did not fall over {steps} steps: {losses}")
+        print(f"train: launches a step {json.dumps(per_step)} (as expected, "
+              f"every step); plain-version calls during the steps "
+              f"{json.dumps(oracle.calls)}")
+        med = sorted(secs[1:])[len(secs[1:]) // 2]
+        print(f"train: {n_params} parameters; peak device memory "
+              f"{torch.cuda.max_memory_allocated()} B; seconds a step "
+              f"(host clock, Trainer.run(1) to its float() sync) {secs}, "
+              f"median of steps 2-{steps - 1} {med}, "
+              f"{B * S / med} tokens/s")
+        if busy == 0:
+            print(f"train profile: step {steps} {wall} s host clock; device "
+                  f"busy not measured: the profiler recorded no kernel")
+        else:
+            print(f"train profile: step {steps} {wall} s host clock "
+                  f"(profiler on), device busy {busy} s, idle share "
+                  f"{1 - busy / wall}; device s by group "
+                  f"{json.dumps(groups)}; top: "
+                  + "; ".join(f"{k[:70]} {us / 1e3} ms x{n}"
+                              for us, k, n in top[:8]))
+        # -- one more step, its gradients held against the plain versions'
+        batch = tr._next_batch()
+        tr.opt_state = None                      # room for two gradients
+        gc.collect()
+        torch.cuda.empty_cache()
+        loss_fn = M.make_loss_fn(cfg)
+        selfcheck.reset_launch_counts()
+        lk, _, gk = value_and_grad(loss_fn, tr.params, batch)
+        check(selfcheck.launch_counts()["flash_attention_bwd"] == L,
+              "train check: the kernel step did not run K8's backward")
+        saved = (model_ops.rmsnorm, model_ops.flash_attention)
+        model_ops.rmsnorm = lambda x, w, eps=1e-5: ref.rmsnorm_ref(x, w, eps)
+        model_ops.flash_attention = (
+            lambda q, k, v, causal=True, q_offset=0: ref.flash_attention_ref(
+                q, k, v, causal=causal, q_offset=q_offset))
+        try:
+            selfcheck.reset_launch_counts()
+            lp, _, gp = value_and_grad(loss_fn, tr.params, batch)
+            plain_launches = selfcheck.launch_counts()
+        finally:
+            model_ops.rmsnorm, model_ops.flash_attention = saved
+        check(not any(plain_launches[k] for k in TRAIN_PATH),
+              f"train check: the plain step launched kernels "
+              f"{plain_launches}")
+        worst, worst_leaf = 0.0, None
+        for i, (a, b) in enumerate(zip(tree_leaves(gk), tree_leaves(gp))):
+            err = float((a - b).abs().max())
+            scale = float(b.abs().max())
+            check(math.isfinite(err) and err <= GRAD_RTOL * scale,
+                  f"train check: gradient leaf {i} {tuple(b.shape)} "
+                  f"differs by {err} (largest {scale})")
+            if scale and err / scale > worst:
+                worst, worst_leaf = err / scale, (i, tuple(b.shape))
+        print(f"train check: loss {float(lk)} (kernels) vs {float(lp)} "
+              f"(plain versions on the card); every one of "
+              f"{len(tree_leaves(gk))} gradient leaves within {GRAD_RTOL} "
+              f"of its largest magnitude, worst {worst} (leaf "
+              f"{worst_leaf})")
+        del tr, gk, gp, batch
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    crash_resume(seed)
+    return total
+
+
+def crash_resume(seed):
+    """The reference's crash-recovery sequence (tests/test_feeds_
+    checkpoint.py:167-192) on the card at reduced deepseek-67b widths:
+    6 uninterrupted steps; a crash at step 4 with a checkpoint every 2
+    steps; a restart that resumes at step 4.  The resumed losses must
+    equal the uninterrupted run's bit for bit.  Run with PyTorch's
+    deterministic algorithms (cuBLAS's workspace fixed by
+    CUBLAS_WORKSPACE_CONFIG, set before the first product)."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_config
+    from repro_torch.optim.adamw import OptimizerConfig, tree_leaves
+    from repro_torch.training.trainer import InjectedFailure, Trainer
+    c = TRAIN
+    cfg = reduced(get_config(c["arch"]))
+    opt = OptimizerConfig(peak_lr=1e-3, warmup_steps=2, decay_steps=20)
+    kw = dict(global_batch=c["crash_batch"], seq_len=c["crash_seq"],
+              opt_cfg=opt, seed=seed)
+    d1 = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    d2 = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        t_ref = Trainer(cfg, ckpt_dir=d1, **kw)
+        t_ref.init_or_restore()
+        t_ref.run(6)
+        ref_losses = [h["loss"] for h in t_ref.history]
+        t1 = Trainer(cfg, ckpt_dir=d2, **kw)
+        t1.init_or_restore()
+        crashed = False
+        try:
+            t1.run(6, checkpoint_every=2, fail_at_step=4)
+        except InjectedFailure:
+            crashed = True
+        check(crashed, "crash_resume: the injected failure did not fire")
+        t2 = Trainer(cfg, ckpt_dir=d2, **kw)
+        t2.init_or_restore()
+        check(t2.step == 4, f"crash_resume: resumed at step {t2.step}, "
+                            f"expected 4")
+        t2.run(2)
+        rec = [h["loss"] for h in t2.history]
+        check(rec == ref_losses[4:],
+              f"crash_resume: resumed losses {rec} differ from the "
+              f"uninterrupted run's {ref_losses[4:]}")
+        same = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(t2.params), tree_leaves(t_ref.params)))
+        check(same, "crash_resume: resumed parameters differ")
+        print(f"train crash_resume: {cfg.name} reduced (d_model "
+              f"{cfg.d_model}, {cfg.num_layers} layers), global batch "
+              f"{c['crash_batch']} x {c['crash_seq']}: crashed at step 4 "
+              f"of 6 (checkpoints at 2 and 4), resumed at step 4; losses "
+              f"of steps 5-6 {rec} equal the uninterrupted run's bit for "
+              f"bit, and so do all parameters")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(d1, ignore_errors=True)
+        shutil.rmtree(d2, ignore_errors=True)
+
+
 def _profile_decode(serve, params, cfg, cache, first, pos, steps):
     """(host s, device busy s, kernels by device time) of ``steps``
     decode steps under torch.profiler; entries are (device us, name,
@@ -1060,7 +1374,9 @@ def main() -> int:
                  + selfcheck.rung_cases(dev, seed=args.seed)
                  + selfcheck.wide_pred_cases(dev, seed=args.seed)
                  + selfcheck.serve_cases(dev, args.seed, SERVE["requests"],
-                                         **serve_shapes)):
+                                         **serve_shapes)
+                 + selfcheck.train_cases(dev, args.seed, TRAIN["batch"],
+                                         TRAIN["seq"])):
         r = selfcheck.run_case(case)
         print(f"kernel {r['kernel']} [{r['label']}]: max_abs_err "
               f"{r['max_abs_err']} ms {r['ms']} ({r['ms_timer']}; call "
@@ -1218,6 +1534,18 @@ def main() -> int:
           f"{device_pool.pool.entry_count()} "
           f"max_memory_allocated {torch.cuda.max_memory_allocated()}")
 
+    # -- 4f. train path ----------------------------------------------------
+    # the query phases' resident columns are not needed any more: the
+    # train step wants the card's memory
+    device_pool.clear()
+    del ds, rec
+    t0 = time.perf_counter()
+    train_counts = train_phase(args.seed)
+    print(f"train: phase took {time.perf_counter() - t0} s (host clock)")
+    for k in TRAIN_PATH:
+        check(train_counts[k] > 0, f"kernel {k} never launched on the "
+                                   f"train path")
+
     # -- 5. kernels line, card line, ok line -------------------------------
     line = []
     for name, meta in selfcheck.KERNELS.items():
@@ -1226,13 +1554,15 @@ def main() -> int:
                  "replaces": meta["replaces"],
                  "launches": (counts[name] + rung3_counts[name]
                               + rung4_counts[name] + fuzzy_counts[name]
-                              + feeds_counts[name] + serve_counts[name]),
+                              + feeds_counts[name] + serve_counts[name]
+                              + train_counts[name]),
                  "launches_columnar": counts[name],
                  "launches_rung3": rung3_counts[name],
                  "launches_rung4": rung4_counts[name],
                  "launches_fuzzy": fuzzy_counts[name],
                  "launches_feeds": feeds_counts[name],
                  "launches_serve": serve_counts[name],
+                 "launches_train": train_counts[name],
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                  "ms_timer": r["ms_timer"],
                  "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -1,8 +1,9 @@
 // K8 at the serve prefill's shape (model layout q [8, 512, 64, 128], k/v
-// [8, 512, 8, 128], causal, float32), built from the repository's source
-// with parts of the tile loop compiled out (-DK8_PROBE_NO_QK,
-// -DK8_PROBE_NO_PV, both): CUDA-event ms a call over 20 calls after 3
-// warm-up calls, zero inputs.  Build and run with scripts/probes/run.sh.
+// [8, 512, 8, 128], causal, float32), built against a copy of the
+// repository's sources with parts of the tile loop patched out (S = QK^T,
+// O += PV, both: scripts/probes/patched.py K8_NO_QK, K8_NO_PV): CUDA-event
+// ms a call over 20 calls after 3 warm-up calls, zero inputs.  Build and
+// run with scripts/probes/run.sh.
 #include <cstdio>
 
 #include "flash_attention.cu"
@@ -27,7 +28,8 @@ int main() {
   for (int i = 0; i < 23; ++i) {
     if (i == 3) cudaEventRecord(e0);
     rc |= rt_flash_attention(q, k, v, o, MT_F32, B, H, KV, Sq, Sq, hd, qst,
-                             kst, qst, 1, 0, 0.08838835f, 8, nullptr);
+                             kst, qst, 1, 0, 0.08838835f, 8, nullptr,
+                             nullptr);
   }
   cudaEventRecord(e1);
   cudaEventSynchronize(e1);

@@ -14,11 +14,18 @@ sums (``window_step`` returns at once), ``K2S_NO_GROUPS`` its tickets and
 folds of the groups of 32 nodes, ``K2S_NO_TAIL`` the folds above the
 first level of groups.  Their sums are wrong by design; only their times
 are read.
+
+The K8 variants (float32's ``flash_wg_kernel``): ``K8_NO_QK`` leaves out
+the S = Q K^T products (S stays 0), ``K8_NO_PV`` the O += P V products.
+``python scripts/probes/patched.py k8 DIR`` writes the copies
+``DIR/k8_{all,no_qk,no_pv,no_mma}/csrc`` that ``run.sh`` builds
+``k8_parts.cu`` against.
 """
 
 from __future__ import annotations
 
 import shutil
+import sys
 from pathlib import Path
 from typing import Dict, List, Tuple
 
@@ -44,6 +51,23 @@ K2S_NO_TAIL: Patches = {"filter_aggregate.cu": [(
 K2S_NO_GROUPS: Patches = {"filter_aggregate.cu": [(
     "  if (nf > 0 && warp < CWARPS) {\n    // a ticket a chunk",
     "  if (false) {\n    // a ticket a chunk")]}
+
+
+_K8_QK = """#pragma unroll
+    for (int kk = 0; kk < HD / 8; ++kk) {
+      const int qo = (kk / 4) * C::QBLK + wg * 64 * SPAN + (kk % 4) * 32;"""
+_K8_PV = """#pragma unroll
+    for (int kj = 0; kj < NKT; ++kj) {
+      wgmma_rs<HD>(acc, pl[kj], sw128(vhi + kj * 32));"""
+K8_NO_QK: Patches = {"flash_attention.cu": [(
+    _K8_QK, """#pragma unroll
+    for (int i = 0; i < NKT * 4; ++i) sc[i] = 0.f;
+    for (int kk = 0; kk < 0; ++kk) {
+      const int qo = (kk / 4) * C::QBLK + wg * 64 * SPAN + (kk % 4) * 32;""")]}
+K8_NO_PV: Patches = {"flash_attention.cu": [(
+    _K8_PV, """#pragma unroll
+    for (int kj = 0; kj < 0; ++kj) {
+      wgmma_rs<HD>(acc, pl[kj], sw128(vhi + kj * 32));""")]}
 
 
 def merged(*parts: Patches) -> Patches:
@@ -78,3 +102,21 @@ def use_csrc(ops, csrc: Path = CSRC) -> None:
     ops.CSRC = csrc
     ops._LIB[0] = None
     ops.lib()
+
+
+def _k8_copies(out: Path) -> None:
+    for name, patches in (("all", {}), ("no_qk", K8_NO_QK),
+                          ("no_pv", K8_NO_PV),
+                          ("no_mma", merged(K8_NO_QK, K8_NO_PV))):
+        dst = out / f"k8_{name}" / "csrc"
+        src = patched_csrc(f"k8_{name}", patches)
+        if dst.resolve() != src.resolve():
+            if dst.exists():
+                shutil.rmtree(dst)
+            shutil.copytree(src, dst)
+
+
+if __name__ == "__main__":
+    if len(sys.argv) != 3 or sys.argv[1] != "k8":
+        sys.exit("usage: python scripts/probes/patched.py k8 OUT_DIR")
+    _k8_copies(Path(sys.argv[2]))

@@ -9,19 +9,15 @@ out=${1:-build/probes}
 mkdir -p "$out"
 nvcc=${CUDA_HOME:-/usr/local/cuda}/bin/nvcc
 flags="-gencode arch=compute_90a,code=sm_90a -std=c++17 -O3"
-csrc=src/repro_torch/kernels/csrc
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
 $nvcc $flags -o "$out/mma_rate" scripts/probes/mma_rate.cu &
 $nvcc $flags -o "$out/tf32_round" scripts/probes/tf32_round.cu &
+# K8 built from patched copies of the sources (scripts/probes/patched.py):
+# the library's own sources carry no probe switches
+python scripts/probes/patched.py k8 "$out"
 for part in all no_qk no_pv no_mma; do
-  case $part in
-    all) d="" ;;
-    no_qk) d="-DK8_PROBE_NO_QK" ;;
-    no_pv) d="-DK8_PROBE_NO_PV" ;;
-    no_mma) d="-DK8_PROBE_NO_QK -DK8_PROBE_NO_PV" ;;
-  esac
-  $nvcc $flags -I $csrc $d -DPART="\"$part\"" -o "$out/k8_$part" \
-    scripts/probes/k8_parts.cu &
+  $nvcc $flags -I "$out/k8_$part/csrc" -DPART="\"$part\"" \
+    -o "$out/k8_$part" scripts/probes/k8_parts.cu &
 done
 wait
 "$out/mma_rate"

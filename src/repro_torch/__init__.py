@@ -6,7 +6,8 @@ columnar query path's per-operator kernels (rung 2: K1-K4), the fused
 index chain A6 behind the plan cache (rung 3, ``columnar/plancache``),
 the partition runtime's stacked launches over ``n`` partition lanes of
 the card (rung 4, ``runtime/spmd``: ``run_query(..., mesh=n)``), the
-fuzzy kernels (K5, K6, A7) and the model serving kernels (K7-K9).
+fuzzy kernels (K5, K6, A7), the model serving kernels (K7-K9) and the
+training path's backward kernels (K7's and K8's).
 Operands live on the CUDA device unless the caller asks for the CPU::
 
     import repro_torch

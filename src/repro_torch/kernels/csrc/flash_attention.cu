@@ -52,13 +52,18 @@
 // diagonal; masked probabilities are 0 exactly, so a tile with no visible
 // key adds nothing while the running max is still NEG_INF; a row's max and
 // sum over the 4 lanes of a quad by xor shuffles (the sum deferred to the
-// end); l clamped at 1e-20.  Tried and dropped for float32 (PERF.md):
-// mma.sync at 3xTF32 (0.77 ms at the serve shape on an H100 at 700 W: its
-// TF32 path peaks near 315 TFLOP/s there, and each warp split and loaded
-// its own B operands); a ninth, producer warp (9 warps leave a thread 168
-// registers: spills); Q hi in shared memory (slower); the splits run
-// under the products, through separate K and V stages or two split tiles
-// (slower).
+// end); l clamped at 1e-20.  Given a non-null lse, lane 0 of each quad
+// also writes its rows' logsumexp of the scaled scores (m scale + log l),
+// which the backward (flash_attention_bwd.cu) reads instead of recomputing
+// the softmax statistics; the serve path passes null and runs a separate
+// instantiation without the store (a runtime null test in the one kernel
+// cost ~2% at the serve shape, PERF.md).  Tried and dropped for float32
+// (PERF.md): mma.sync at 3xTF32 (0.77 ms at the serve shape on an H100 at
+// 700 W: its TF32 path peaks near 315 TFLOP/s there, and each warp split
+// and loaded its own B operands); a ninth, producer warp (9 warps leave a
+// thread 168 registers: spills); Q hi in shared memory (slower); the
+// splits run under the products, through separate K and V stages or two
+// split tiles (slower).
 //
 // Bound: operations.  4 * hd flops per visible (query, key) pair and head;
 // as 3xTF32 that is 3 times as many tensor-core flops, 0.209 ms at the
@@ -132,19 +137,35 @@ __device__ __forceinline__ float bf16_at(const uint4& v, int e) {
   const uint32_t w = uword(v, e >> 1);
   return __uint_as_float((e & 1) ? (w & 0xffff0000u) : (w << 16));
 }
+// The row logsumexp of the scaled scores, m scale + log(l), for the
+// backward (kernels/flash_attention_bwd.cu): lse [B, H, Sq] float32, rows
+// g and g + 8 of the warp's 16 (m and l are the quad's, after its shuffles)
+__device__ __forceinline__ void store_lse(float* lse, int b, int H, int h,
+                                          int Sq, int r0, int nrows, int g,
+                                          const float* m, const float* l,
+                                          float scale) {
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int r = g + 8 * rr;
+    if (r < nrows)
+      lse[(static_cast<int64_t>(b) * H + h) * Sq + r0 + r] =
+          m[rr] * scale + logf(fmaxf(l[rr], 1e-20f));
+  }
+}
 }  // namespace
 
 // tk, tv: tensor maps of the [hd, three of (rows < kv_len, KV heads,
 // batch)] views (the host orders those three by stride); perm names the
 // coordinate each of map dims 1..3 takes (0 row, 1 KV head, 2 batch), two
 // bits each.
-template <typename T, int HD>
+template <typename T, int HD, bool LSE>
 __global__ void __launch_bounds__(NT, 1) flash_fwd_kernel(
     const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv, const T* __restrict__ q,
     T* __restrict__ o, int B, int H, int KV, int GH, int Sq, int kv_len,
     int nq, int64_t qsb, int64_t qss, int64_t qsh, int64_t osb, int64_t oss,
-    int64_t osh, int causal, int q_offset, float scale, int perm) {
+    int64_t osh, int causal, int q_offset, float scale, int perm,
+    float* __restrict__ lse) {
   using C = Cfg<T, HD>;
   constexpr int EPC = C::EPC, EPB = C::EPB, NB = C::NB;
   constexpr int NKT = BK / 8;                // 8-key steps (n-tiles of S)
@@ -370,6 +391,8 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_kernel(
     l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 1);
     l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 2);
   }
+  if (LSE && t == 0)
+    store_lse(lse, b, H, h, Sq, r0, nrows, g, m, l, scale);
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
     const int r = g + 8 * rr;
@@ -517,13 +540,14 @@ __device__ __forceinline__ void split4(const uint4& x, uint4& hi, uint4& lo) {
 }
 }  // namespace
 
-template <int HD>
+template <int HD, bool LSE>
 __global__ void __launch_bounds__(NT, 1) flash_wg_kernel(
     const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv, const float* __restrict__ q,
     float* __restrict__ o, int B, int H, int KV, int GH, int Sq, int kv_len,
     int nq, int64_t qsb, int64_t qss, int64_t qsh, int64_t osb, int64_t oss,
-    int64_t osh, int causal, int q_offset, float scale, int perm) {
+    int64_t osh, int causal, int q_offset, float scale, int perm,
+    float* __restrict__ lse) {
   using C = WCfg<HD>;
   constexpr int NB = C::NB, NKT = BKW / 8, NO = HD / 8;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -674,7 +698,6 @@ __global__ void __launch_bounds__(NT, 1) flash_wg_kernel(
 #pragma unroll
     for (int i = 0; i < NKT * 4; ++i) pin(sc[i]);
     wg_fence();
-#ifndef K8_PROBE_NO_QK     // scripts/probes: the time without these MMAs
 #pragma unroll
     for (int kk = 0; kk < HD / 8; ++kk) {
       const int qo = (kk / 4) * C::QBLK + wg * 64 * SPAN + (kk % 4) * 32;
@@ -683,10 +706,6 @@ __global__ void __launch_bounds__(NT, 1) flash_wg_kernel(
       wgmma_rs_n32(sc, qh[kk], sw128(klo + ko));
       wgmma_rs_n32(sc, qh[kk], sw128(khi + ko));
     }
-#else
-#pragma unroll
-    for (int i = 0; i < NKT * 4; ++i) sc[i] = 0.f;
-#endif
     wg_commit();
     wg_wait0();
 #pragma unroll
@@ -755,14 +774,12 @@ __global__ void __launch_bounds__(NT, 1) flash_wg_kernel(
 #pragma unroll
     for (int i = 0; i < NO * 4; ++i) pin(acc[i]);
     wg_fence();
-#ifndef K8_PROBE_NO_PV     // scripts/probes: the time without these MMAs
 #pragma unroll
     for (int kj = 0; kj < NKT; ++kj) {
       wgmma_rs<HD>(acc, pl[kj], sw128(vhi + kj * 32));
       wgmma_rs<HD>(acc, ph[kj], sw128(vlo + kj * 32));
       wgmma_rs<HD>(acc, ph[kj], sw128(vhi + kj * 32));
     }
-#endif
     wg_commit();
     wg_wait0();
 #pragma unroll
@@ -784,6 +801,8 @@ __global__ void __launch_bounds__(NT, 1) flash_wg_kernel(
     l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 1);
     l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 2);
   }
+  if (LSE && t == 0)
+    store_lse(lse, b, H, h, Sq, r0, nrows, g, m, l, scale);
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
     const int r = g + 8 * rr;
@@ -857,24 +876,62 @@ cudaError_t kv_map(const void* ptr, int dt, int hd, int n, int KV, int B,
   return cudaSuccess;
 }
 
-template <typename T, int HD>
-int launch(const CUtensorMap& tk, const CUtensorMap& tv, const void* q,
-           void* o, int B, int H, int KV, int GH, int Sq, int kv_len,
-           const int64_t* qst, const int64_t* ost, int causal, int q_offset,
-           float scale, int perm, cudaStream_t s) {
+template <typename T, int HD, bool LSE>
+int launch_k(const CUtensorMap& tk, const CUtensorMap& tv, const void* q,
+             void* o, int B, int H, int KV, int GH, int Sq, int kv_len,
+             const int64_t* qst, const int64_t* ost, int causal,
+             int q_offset, float scale, int perm, float* lse,
+             cudaStream_t s) {
   static int cap = 48 * 1024;
   const int bytes = Cfg<T, HD>::SMEM;
-  cudaError_t e = allow_smem(flash_fwd_kernel<T, HD>, bytes, &cap);
+  cudaError_t e = allow_smem(flash_fwd_kernel<T, HD, LSE>, bytes, &cap);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int BQ = 16 * (NWC / GH);
   const int nq = (Sq + BQ - 1) / BQ;
   const int64_t grid =
       static_cast<int64_t>(nq) * B * KV * ((H / KV) / GH);
   if (grid > 0)
-    flash_fwd_kernel<T, HD><<<static_cast<unsigned>(grid), NT, bytes, s>>>(
+    flash_fwd_kernel<T, HD, LSE><<<static_cast<unsigned>(grid), NT, bytes,
+                                   s>>>(
         tk, tv, static_cast<const T*>(q), static_cast<T*>(o), B, H, KV, GH,
         Sq, kv_len, nq, qst[0], qst[1], qst[2], ost[0], ost[1], ost[2],
-        causal, q_offset, scale, perm);
+        causal, q_offset, scale, perm, lse);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the row logsumexp is a template switch, so the serve path's kernel (no
+// lse) is compiled exactly as it was before the backward needed one
+template <typename T, int HD>
+int launch(const CUtensorMap& tk, const CUtensorMap& tv, const void* q,
+           void* o, int B, int H, int KV, int GH, int Sq, int kv_len,
+           const int64_t* qst, const int64_t* ost, int causal, int q_offset,
+           float scale, int perm, float* lse, cudaStream_t s) {
+  return lse != nullptr
+      ? launch_k<T, HD, true>(tk, tv, q, o, B, H, KV, GH, Sq, kv_len, qst,
+                              ost, causal, q_offset, scale, perm, lse, s)
+      : launch_k<T, HD, false>(tk, tv, q, o, B, H, KV, GH, Sq, kv_len, qst,
+                               ost, causal, q_offset, scale, perm, lse, s);
+}
+
+template <int HD, bool LSE>
+int launch_wg_k(const CUtensorMap& tk, const CUtensorMap& tv, const void* q,
+                void* o, int B, int H, int KV, int GH, int Sq, int kv_len,
+                const int64_t* qst, const int64_t* ost, int causal,
+                int q_offset, float scale, int perm, float* lse,
+                cudaStream_t s) {
+  static int cap = 48 * 1024;
+  const int bytes = WCfg<HD>::SMEM;
+  cudaError_t e = allow_smem(flash_wg_kernel<HD, LSE>, bytes, &cap);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int BQ = 16 * (NWC / GH);
+  const int nq = (Sq + BQ - 1) / BQ;
+  const int64_t grid =
+      static_cast<int64_t>(nq) * B * KV * ((H / KV) / GH);
+  if (grid > 0)
+    flash_wg_kernel<HD, LSE><<<static_cast<unsigned>(grid), NT, bytes, s>>>(
+        tk, tv, static_cast<const float*>(q), static_cast<float*>(o), B, H,
+        KV, GH, Sq, kv_len, nq, qst[0], qst[1], qst[2], ost[0], ost[1],
+        ost[2], causal, q_offset, scale, perm, lse);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -882,38 +939,33 @@ template <int HD>
 int launch_wg(const CUtensorMap& tk, const CUtensorMap& tv, const void* q,
               void* o, int B, int H, int KV, int GH, int Sq, int kv_len,
               const int64_t* qst, const int64_t* ost, int causal,
-              int q_offset, float scale, int perm, cudaStream_t s) {
-  static int cap = 48 * 1024;
-  const int bytes = WCfg<HD>::SMEM;
-  cudaError_t e = allow_smem(flash_wg_kernel<HD>, bytes, &cap);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int BQ = 16 * (NWC / GH);
-  const int nq = (Sq + BQ - 1) / BQ;
-  const int64_t grid =
-      static_cast<int64_t>(nq) * B * KV * ((H / KV) / GH);
-  if (grid > 0)
-    flash_wg_kernel<HD><<<static_cast<unsigned>(grid), NT, bytes, s>>>(
-        tk, tv, static_cast<const float*>(q), static_cast<float*>(o), B, H,
-        KV, GH, Sq, kv_len, nq, qst[0], qst[1], qst[2], ost[0], ost[1],
-        ost[2], causal, q_offset, scale, perm);
-  return static_cast<int>(cudaGetLastError());
+              int q_offset, float scale, int perm, float* lse,
+              cudaStream_t s) {
+  return lse != nullptr
+      ? launch_wg_k<HD, true>(tk, tv, q, o, B, H, KV, GH, Sq, kv_len, qst,
+                              ost, causal, q_offset, scale, perm, lse, s)
+      : launch_wg_k<HD, false>(tk, tv, q, o, B, H, KV, GH, Sq, kv_len, qst,
+                               ost, causal, q_offset, scale, perm, lse, s);
 }
 
 template <typename T>
 int by_hd(int hd, const CUtensorMap& tk, const CUtensorMap& tv,
           const void* q, void* o, int B, int H, int KV, int GH, int Sq,
           int kv_len, const int64_t* qst, const int64_t* ost, int causal,
-          int q_offset, float scale, int perm, cudaStream_t s) {
+          int q_offset, float scale, int perm, float* lse, cudaStream_t s) {
   switch (hd) {
     case 16: return launch<T, 16>(tk, tv, q, o, B, H, KV, GH, Sq, kv_len,
-                                  qst, ost, causal, q_offset, scale, perm, s);
+                                  qst, ost, causal, q_offset, scale, perm,
+                                  lse, s);
     case 32: return launch<T, 32>(tk, tv, q, o, B, H, KV, GH, Sq, kv_len,
-                                  qst, ost, causal, q_offset, scale, perm, s);
+                                  qst, ost, causal, q_offset, scale, perm,
+                                  lse, s);
     case 64: return launch<T, 64>(tk, tv, q, o, B, H, KV, GH, Sq, kv_len,
-                                  qst, ost, causal, q_offset, scale, perm, s);
+                                  qst, ost, causal, q_offset, scale, perm,
+                                  lse, s);
     case 128: return launch<T, 128>(tk, tv, q, o, B, H, KV, GH, Sq, kv_len,
                                     qst, ost, causal, q_offset, scale, perm,
-                                    s);
+                                    lse, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -926,13 +978,15 @@ int by_hd(int hd, const CUtensorMap& tk, const CUtensorMap& tv,
 // o: like q, strides ost, of q's type.  hd is 16, 32, 64 or 128; q, k, v
 // and o 16-byte aligned with strides of whole 16-byte units (the wrapper
 // checks); GH (8, 4, 2 or 1) divides H / KV: the query heads a CTA takes.
+// lse: null, or float32 [B, H, Sq] (contiguous) for the row logsumexp of
+// the scaled scores, which the backward reads.
 extern "C" int rt_flash_attention(const void* q, const void* k,
                                   const void* v, void* o, int dt, int B,
                                   int H, int KV, int Sq, int kv_len, int hd,
                                   const int64_t* qst, const int64_t* kst,
                                   const int64_t* ost, int causal,
                                   int q_offset, float scale, int GH,
-                                  void* stream) {
+                                  float* lse, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (KV < 1 || H % KV != 0 || GH < 1 || NWC % GH != 0 ||
       (H / KV) % GH != 0 || kv_len < 1 || (dt != MT_F32 && dt != MT_BF16))
@@ -949,19 +1003,20 @@ extern "C" int rt_flash_attention(const void* q, const void* k,
     switch (hd) {
       case 16: return launch_wg<16>(tk, tv, q, o, B, H, KV, GH, Sq, kv_len,
                                     qst, ost, causal, q_offset, scale, perm,
-                                    s);
+                                    lse, s);
       case 32: return launch_wg<32>(tk, tv, q, o, B, H, KV, GH, Sq, kv_len,
                                     qst, ost, causal, q_offset, scale, perm,
-                                    s);
+                                    lse, s);
       case 64: return launch_wg<64>(tk, tv, q, o, B, H, KV, GH, Sq, kv_len,
                                     qst, ost, causal, q_offset, scale, perm,
-                                    s);
+                                    lse, s);
       case 128: return launch_wg<128>(tk, tv, q, o, B, H, KV, GH, Sq, kv_len,
                                       qst, ost, causal, q_offset, scale,
-                                      perm, s);
+                                      perm, lse, s);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
   return by_hd<__nv_bfloat16>(hd, tk, tv, q, o, B, H, KV, GH, Sq, kv_len,
-                              qst, ost, causal, q_offset, scale, perm, s);
+                              qst, ost, causal, q_offset, scale, perm, lse,
+                              s);
 }

@@ -1,10 +1,17 @@
 """K8: blockwise causal GQA flash-attention forward (the reference's
-``kernels/flash_attention.py``).
+``kernels/flash_attention.py``), and its backward.
 
   flash_plain(q, k, v, ...)   the plain PyTorch version: the oracle
                               ``ref.flash_attention_ref`` over the valid keys
-  flash_cuda(q, k, v, ...)    the CUDA kernel csrc/flash_attention.cu
+  flash_cuda(q, k, v, ...)    the CUDA kernel csrc/flash_attention.cu; with
+                              ``with_lse`` also the row logsumexp
+                              [B, H, Sq] the backward reads
   flash_attention_fwd(...)    dispatch on q's device
+  flash_bwd_plain(q, k, v, g, ...)
+                              the backward's plain version: autograd of the
+                              oracle (the reference's custom VJP)
+  flash_bwd_cuda(q, k, v, o, lse, g, ...)
+                              the CUDA kernels csrc/flash_attention_bwd.cu
 
 Layout: the model's, q [B, Sq, H, hd] and k/v [B, Skv, KV, hd] (H = KV*G,
 query head h reads KV head h // G), output like q.  The Pallas kernel's
@@ -28,7 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -37,7 +44,8 @@ from .ref import flash_attention_ref
 from .rmsnorm import DTYPES
 
 __all__ = ["flash_plain", "flash_cuda", "flash_attention_fwd",
-           "fused_layout", "HEAD_DIMS", "launch_plan"]
+           "flash_bwd_plain", "flash_bwd_cuda", "fused_layout", "HEAD_DIMS",
+           "launch_plan"]
 
 HEAD_DIMS = (16, 32, 64, 128)
 _WARPS = 8                     # csrc/flash_attention.cu NWC: 16 rows each
@@ -78,8 +86,11 @@ def _strides(t: torch.Tensor) -> "ctypes.Array":
 
 def flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                causal: bool = True, q_offset: int = 0,
-               kv_len: Optional[int] = None) -> torch.Tensor:
-    """K8 on the card: [B, Sq, H, hd] in q's dtype."""
+               kv_len: Optional[int] = None, with_lse: bool = False
+               ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """K8 on the card: [B, Sq, H, hd] in q's dtype; with ``with_lse`` the
+    pair (out, lse), lse [B, H, Sq] float32 the logsumexp of each row's
+    scaled scores."""
     B, Sq, H, hd = q.shape
     KV = k.shape[2]
     n = k.shape[1] if kv_len is None else kv_len
@@ -96,20 +107,23 @@ def flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         f"steps, hd in {HEAD_DIMS}, 1 <= kv_len <= Skv) "
                         "expected")
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     f = _ops.lib().rt_flash_attention
     f.restype = ctypes.c_int
     I, P = ctypes.c_int, ctypes.c_void_p
     f.argtypes = [P, P, P, P, I, I, I, I, I, I, I, P, P, P, I, I,
-                  ctypes.c_float, I, P]
+                  ctypes.c_float, I, P, P]
     qs, ks, os_ = _strides(q), _strides(k), _strides(out)
     gh = launch_plan(B, H, KV, Sq)[0]
     rc = f(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
            DTYPES[q.dtype], B, H, KV, Sq, n, hd, ctypes.addressof(qs),
            ctypes.addressof(ks), ctypes.addressof(os_), int(bool(causal)),
-           q_offset, 1.0 / math.sqrt(hd), gh, _ops.stream(q))
+           q_offset, 1.0 / math.sqrt(hd), gh,
+           None if lse is None else lse.data_ptr(), _ops.stream(q))
     _ops.count(flash_cuda)
     _ops.check(rc, "flash_attention")
-    return out
+    return (out, lse) if with_lse else out
 
 
 flash_cuda.launches = 0
@@ -123,6 +137,61 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.is_cuda:
         return flash_cuda(q, k, v, causal, q_offset, kv_len)
     return flash_plain(q, k, v, causal, q_offset, kv_len)
+
+
+def flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    g: torch.Tensor, causal: bool = True, q_offset: int = 0
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K8 backward's plain version: (dq, dk, dv) of the output gradient g,
+    by autograd of the oracle (what the reference's custom VJP,
+    ``ops._flash_vjp_bwd``, computes)."""
+    with torch.enable_grad():
+        qkv = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = flash_attention_ref(*qkv, causal=causal, q_offset=q_offset)
+        return tuple(torch.autograd.grad(out, qkv, g))
+
+
+def flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   o: torch.Tensor, lse: torch.Tensor, g: torch.Tensor,
+                   causal: bool = True, q_offset: int = 0
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K8 backward on the card: (dq, dk, dv) in q's dtype, given the
+    forward's output ``o`` and row logsumexp ``lse`` (``flash_cuda(...,
+    with_lse=True)``) and the output gradient ``g``.  Operands that are not
+    contiguous are copied to contiguous ones first."""
+    B, Sq, H, hd = q.shape
+    KV, Skv = k.shape[2], k.shape[1]
+    if not (q.is_cuda and k.is_cuda and v.is_cuda and o.is_cuda
+            and g.is_cuda and lse.is_cuda and q.dim() == 4
+            and k.shape == v.shape and k.dim() == 4 and k.shape[0] == B
+            and k.shape[3] == hd and H % KV == 0 and Skv >= 1
+            and o.shape == q.shape and g.shape == q.shape
+            and q.dtype == k.dtype == v.dtype == o.dtype == g.dtype
+            and q.dtype in DTYPES and hd in HEAD_DIMS
+            and lse.dtype == torch.float32
+            and tuple(lse.shape) == (B, H, Sq)):
+        raise TypeError("flash_bwd_cuda: CUDA float32/bfloat16 q, o, g "
+                        "[B, Sq, H, hd], k, v [B, Skv, KV, hd] (one dtype, "
+                        f"hd in {HEAD_DIMS}) and float32 lse [B, H, Sq] "
+                        "expected")
+    q, k, v, o, g, lse = (t.contiguous() for t in (q, k, v, o, g, lse))
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    dsum = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    f = _ops.lib().rt_flash_attention_bwd
+    f.restype = ctypes.c_int
+    I, P = ctypes.c_int, ctypes.c_void_p
+    f.argtypes = [P] * 10 + [I] * 9 + [ctypes.c_float, P]
+    rc = f(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+           g.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
+           dk.data_ptr(), dv.data_ptr(), DTYPES[q.dtype], B, H, KV, Sq, Skv,
+           hd, int(bool(causal)), q_offset, 1.0 / math.sqrt(hd),
+           _ops.stream(q))
+    _ops.count(flash_bwd_cuda)
+    _ops.check(rc, "flash_attention_bwd")
+    return dq, dk, dv
+
+
+flash_bwd_cuda.launches = 0
 
 
 def fused_layout(q: torch.Tensor, k: torch.Tensor,

@@ -55,6 +55,7 @@ __all__ = ["KERNELS", "MODEL_RTOL", "BF16_RTOL",
            "rows_touched",
            "k7_case",
            "k8_case", "k9_case", "main_path_cases", "serve_cases",
+           "k7_bwd_case", "k8_bwd_case", "train_cases", "BWD_RTOL",
            "a6_case", "k1_rows_case", "k2_rows_case", "exchange_case",
            "merge_case", "rung_cases", "raw_compare",
            "run_case", "device_ms", "profiler_works", "union_us"]
@@ -75,6 +76,14 @@ BF16_FLOPS_PER_S = 989e12
 MODEL_RTOL = 1e-5
 # bfloat16 outputs: one rounding step (2^-8 relative) either side
 BF16_RTOL = 2.0 ** -7
+# float32 gradients of the backward kernels against autograd of the plain
+# versions: K8's dq, dk, dv sum up to Skv (or G * Sq) products of
+# probabilities the kernel recomputes from the forward's logsumexp (the
+# plain version normalizes its own softmax), and K7's dw sums N rows in
+# another order; both move a gradient by ~1e-6 of its largest magnitude.
+# 1e-4 of it leaves that margin 100 times over and still fails a wrong
+# mask, a lost tile or a wrong head (errors of order 1e-1)
+BWD_RTOL = 1e-4
 
 KERNELS = {
     "range_mask": {
@@ -117,6 +126,16 @@ KERNELS = {
         "source": "src/repro_torch/kernels/csrc/lsm_decode_attention.cu",
         "replaces": "src/repro/kernels/lsm_decode_attention.py:32",
         "wrapper": LD.decode_partial_cuda},
+    # the training path's backward kernels: XLA's autodiff of the plain
+    # rms_norm there, and the Pallas kernel's custom VJP (the oracle's)
+    "rmsnorm_bwd": {
+        "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+        "replaces": "src/repro/models/layers.py:164",
+        "wrapper": RN.rmsnorm_bwd_cuda},
+    "flash_attention_bwd": {
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/ops.py:86",
+        "wrapper": FA.flash_bwd_cuda},
     # the query path's rungs 3 and 4: jit cores of the reference, each one
     # launch there (no pallas_call)
     "fused_index_chain": {
@@ -1152,6 +1171,91 @@ def k8_case(B: int, H: int, KV: int, Sq: int, Skv: int, hd: int, seed: int,
             "check": _float_check(_rtol(dtype)),
             "bytes": esz * (2 * B * Sq * H * hd + 2 * B * n * KV * hd),
             "ops": flops, "tc_s": tc_s}
+
+
+def k7_bwd_case(N: int, d: int, seed: int, dev: torch.device,
+                dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
+    """K7's backward over x, g [N, d] in ``dtype`` with float32 weights;
+    the library call is autograd's backward of ``F.rms_norm``."""
+    rng = np.random.default_rng(seed)
+    x = _randn(rng, (N, d), dtype, dev)
+    w = _randn(rng, (d,), torch.float32, dev)
+    g = _randn(rng, (N, d), dtype, dev)
+    xl = x.detach().requires_grad_(True)
+    wl = w.detach().to(dtype).requires_grad_(True)
+    yl = torch.nn.functional.rms_norm(xl, (d,), wl, eps=1e-5)
+    return {"kernel": "rmsnorm_bwd", "label": f"x, g [{N}, {d}] {dtype}",
+            "run": lambda: RN.rmsnorm_bwd_cuda(x, w, g),
+            "plain": lambda: RN.rmsnorm_bwd_plain(x, w, g),
+            "library": lambda: torch.autograd.grad(yl, (xl, wl), g,
+                                                   retain_graph=True),
+            "check": _float_check(BF16_RTOL if dtype == torch.bfloat16
+                                  else BWD_RTOL),
+            # x and g read, dx written once; w and dw
+            "bytes": 3 * x.numel() * x.element_size() + 8 * d,
+            "ops": 8 * N * d}
+
+
+def k8_bwd_case(B: int, H: int, KV: int, Sq: int, Skv: int, hd: int,
+                seed: int, dev: torch.device, causal: bool = True,
+                q_offset: int = 0, dtype: torch.dtype = torch.float32,
+                library: bool = False) -> Dict[str, Any]:
+    """K8's backward in the model layout (q, g [B, Sq, H, hd], k/v
+    [B, Skv, KV, hd]) given K8's forward output and row logsumexp;
+    ``library``: time autograd's backward of ``scaled_dot_product_attention``
+    (``enable_gqa``) on the same inputs."""
+    rng = np.random.default_rng(seed)
+    q = _randn(rng, (B, Sq, H, hd), dtype, dev)
+    k, v = (_randn(rng, (B, Skv, KV, hd), dtype, dev) for _ in range(2))
+    g = _randn(rng, (B, Sq, H, hd), dtype, dev)
+    counts = _counters()
+    o, lse = FA.flash_cuda(q, k, v, causal, q_offset, with_lse=True)
+    _set_counters(counts)                # setting up is not a launch
+    lib_fn = None
+    if library:
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                      for t in (q, k, v))
+        ot = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal and q_offset == 0 and Sq == Skv,
+            enable_gqa=True)
+        gt = g.transpose(1, 2)
+
+        def lib_fn():
+            return torch.autograd.grad(ot, (qt, kt, vt), gt,
+                                       retain_graph=True)
+    vis = sum(min(Skv, q_offset + i + 1) if causal else Skv
+              for i in range(Sq))
+    flops = 10 * B * H * hd * vis        # S again, dP, dV, dK, dQ
+    esz = q.element_size()
+    return {"kernel": "flash_attention_bwd",
+            "label": (f"q [{B}, {Sq}, {H}, {hd}] k/v [{B}, {Skv}, {KV}, "
+                      f"{hd}] {'causal' if causal else 'full'} "
+                      f"q_offset={q_offset} {dtype}"),
+            "run": lambda: FA.flash_bwd_cuda(q, k, v, o, lse, g, causal,
+                                             q_offset),
+            "plain": lambda: FA.flash_bwd_plain(q, k, v, g, causal,
+                                                q_offset),
+            "library": lib_fn,
+            "check": _float_check(BF16_RTOL if dtype == torch.bfloat16
+                                  else BWD_RTOL),
+            # q, k, v, o, g and lse read; dq, dk, dv written
+            "bytes": esz * (4 * B * Sq * H * hd + 4 * B * Skv * KV * hd)
+            + 4 * B * H * Sq,
+            "ops": flops,
+            # at float32 accuracy on the tensor cores: 3xTF32, as K8's
+            "tc_s": (3 * flops / TF32_FLOPS_PER_S if dtype == torch.float32
+                     else flops / BF16_FLOPS_PER_S)}
+
+
+def train_cases(dev: torch.device, seed: int = 0, batch: int = 2,
+                seq: int = 2048) -> List[Dict]:
+    """The backward kernels at the shapes deepseek-67b's train step gives
+    them for ``batch`` sequences of ``seq`` tokens: K7's over the
+    [batch * seq, 8192] activations, K8's over q [batch, seq, 64, 128],
+    k/v [batch, seq, 8, 128], causal, float32."""
+    return [k7_bwd_case(batch * seq, 8192, seed + 30, dev),
+            k8_bwd_case(batch, 64, 8, seq, seq, 128, seed + 31, dev,
+                        library=True)]
 
 
 def k9_case(B: int, H: int, KV: int, hd: int, Sc: int, valid_len: int,

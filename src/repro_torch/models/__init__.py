@@ -1,2 +1,2 @@
-"""The model stack's serving path: layers, attention, the decoder stack
-and the language model (prefill and flat or LSM-tiered decode)."""
+"""The model stack: layers, attention, the decoder stack and the language
+model (the training loss, prefill and flat or LSM-tiered decode)."""

@@ -1,5 +1,5 @@
-"""GQA attention: prefill through K8 and cached decode through K9 (the
-reference's ``models/attention.py``).
+"""GQA attention: training and prefill through K8 and cached decode
+through K9 (the reference's ``models/attention.py``).
 
 The reference's prefill calls ``flash_attention_xla``, a chunked XLA twin
 of its Pallas kernel that computes exactly ``ref.flash_attention_ref``;
@@ -95,7 +95,8 @@ def attention_prefill(params: Params, x: torch.Tensor,
 
 def attention(params: Params, x: torch.Tensor, positions: torch.Tensor,
               cfg: ModelConfig) -> torch.Tensor:
-    """Training-mode self-attention (no cache)."""
+    """Training-mode self-attention (no cache): K8, whose gradient is K8's
+    backward kernels on the card."""
     return attention_prefill(params, x, positions, cfg)[0]
 
 

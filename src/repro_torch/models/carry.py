@@ -22,7 +22,8 @@ import torch
 
 from ..configs.base import ModelConfig
 
-__all__ = ["params_from_reference", "states_from_reference"]
+__all__ = ["params_from_reference", "states_from_reference",
+           "train_state_from_reference"]
 
 
 def _take(tree: Any, c: int) -> Any:
@@ -74,3 +75,17 @@ def states_from_reference(tree: Dict[str, Any], cfg: ModelConfig,
                        torch.from_numpy(np.array(v)).to(device)
                        for k, v in t.items()})
     return layers
+
+
+def train_state_from_reference(opt_state: Dict[str, Any], cfg: ModelConfig,
+                               device: torch.device) -> Dict[str, Any]:
+    """The reference's optimizer state (``init_train_state``'s tree, numpy
+    leaves: ``m``, ``v`` and, with compression, ``ef_err`` shaped like the
+    parameters; ``step`` a scalar) -> the port's, the parameter-shaped
+    trees unstacked as ``params_from_reference`` unstacks the weights and
+    ``step`` a 0-d int32 tensor on ``device``."""
+    out = {k: params_from_reference(opt_state[k], cfg, device)
+           for k in ("m", "v", "ef_err") if k in opt_state}
+    out["step"] = torch.tensor(int(np.asarray(opt_state["step"])),
+                               dtype=torch.int32, device=device)
+    return out

@@ -7,9 +7,9 @@ reference's ``abstract_params``, ``param_shardings`` and ``compute_view``
 (sharding views, identities on one card) come with the port's
 ``runtime/sharding`` in a later slice.
 
-``rms_norm`` is K7 on the card (``kernels/model_ops.rmsnorm``); the other
-layers are plain PyTorch, as the reference computes them outside any
-kernel.
+``rms_norm`` is K7 on the card (``kernels/model_ops.rmsnorm``), its
+gradient K7's backward kernel; the other layers are plain PyTorch (and
+autograd), as the reference computes them outside any kernel.
 """
 
 from __future__ import annotations

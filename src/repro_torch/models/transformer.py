@@ -10,16 +10,26 @@ entry per layer and the stack is a Python loop over them
 order).  The ``moe``, ``mamba``, ``mlstm`` and ``slstm`` mixers come with
 a later slice of the port and raise ``NotImplementedError``.
 
-Modes: ``prefill`` (returns each layer's KV cache) and ``decode``
-(consumes and returns it; flat or tiered by ``cfg.kv_layout``).
+Modes: ``train`` (no state; each layer's body wrapped by
+``cfg.remat_policy``), ``prefill`` (returns each layer's KV cache) and
+``decode`` (consumes and returns it; flat or tiered by ``cfg.kv_layout``).
+
+Rematerialization in train mode, per layer as the reference's
+``jax.checkpoint`` of its scan body: ``"full"`` keeps only the layer's
+input (``torch.utils.checkpoint``, non-reentrant), so its forward, K7 and
+K8 included, runs again inside the backward; ``"dots"`` also keeps the
+outputs of the matrix products (a selective-checkpoint policy, the
+counterpart of ``checkpoint_dots``); ``"nothing"`` keeps everything.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+import functools
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as _ckpt
 
 from ..configs.base import ModelConfig
 from ..kvcache.lsm_cache import COUNTERS, cache_config_for
@@ -129,10 +139,14 @@ def block_specs(cfg: ModelConfig, mixer: str, ffn: str) -> Dict[str, Any]:
 def block_apply(params: Dict[str, Any], x: torch.Tensor,
                 positions: Any, cfg: ModelConfig, ffn: str, mode: str,
                 state: Any = None) -> Tuple[torch.Tensor, Any]:
-    """x: [B, S, d] -> (x', new_state).  ``positions`` is [B, S] in
-    prefill and the decode position (an int) in decode."""
+    """x: [B, S, d] -> (x', new_state).  ``positions`` is [B, S] in train
+    and prefill and the decode position (an int) in decode; train mode
+    returns no state."""
     h = apply_norm(params["norm1"], x, cfg)
-    if mode == "prefill":
+    if mode == "train":
+        mixed, new_state = attn_mod.attention(params["mixer"], h, positions,
+                                              cfg), None
+    elif mode == "prefill":
         mixed, new_state = attn_mod.attention_prefill(params["mixer"], h,
                                                       positions, cfg)
     elif mode == "decode":
@@ -159,16 +173,50 @@ def stack_specs(cfg: ModelConfig) -> List[Dict[str, Any]]:
             for i in range(cfg.num_layers)]
 
 
+# the matrix products a "dots" policy keeps (the aten ops torch.matmul
+# lowers to)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _keep_dots(ctx: Any, op: Any, *args: Any, **kwargs: Any) -> Any:
+    P = _ckpt.CheckpointPolicy
+    return P.MUST_SAVE if op in _DOTS else P.PREFER_RECOMPUTE
+
+
+def _remat_wrap(fn: Callable, policy: str) -> Callable:
+    if policy == "nothing":
+        return fn
+    if policy == "dots":
+        ctx = functools.partial(_ckpt.create_selective_checkpoint_contexts,
+                                _keep_dots)
+        return functools.partial(_ckpt.checkpoint, fn, use_reentrant=False,
+                                 context_fn=ctx)
+    if policy == "full":
+        return functools.partial(_ckpt.checkpoint, fn, use_reentrant=False)
+    raise ValueError(f"remat_policy {policy!r}")
+
+
 def run_stack(params: List[Dict[str, Any]], x: torch.Tensor, positions: Any,
               cfg: ModelConfig, mode: str,
               states: Optional[List[Any]] = None
               ) -> Tuple[torch.Tensor, List[Any]]:
-    """Apply every layer in order; returns (x, per-layer states)."""
+    """Apply every layer in order; returns (x, per-layer states).  In
+    train mode each layer's body is wrapped by ``cfg.remat_policy`` when
+    gradients are being recorded, and the states are None."""
     pattern = cfg.layer_pattern
     out_states = []
     for i, p in enumerate(params):
-        x, st = block_apply(p, x, positions, cfg, pattern[i % len(pattern)][1],
-                            mode, None if states is None else states[i])
+        ffn = pattern[i % len(pattern)][1]
+        if mode == "train":
+            def body(x, p=p, ffn=ffn):
+                return block_apply(p, x, positions, cfg, ffn, mode)[0]
+            if torch.is_grad_enabled():
+                body = _remat_wrap(body, cfg.remat_policy)
+            x, st = body(x), None
+        else:
+            x, st = block_apply(p, x, positions, cfg, ffn, mode,
+                                None if states is None else states[i])
         out_states.append(st)
     return x, out_states
 

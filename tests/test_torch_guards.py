@@ -187,3 +187,68 @@ def test_unported_blocks_raise_not_implemented(arch):
                  lambda: cache_specs(cfg, 1, 8)):
         with pytest.raises(NotImplementedError, match="slice"):
             call()
+
+
+def test_training_entry_points_raise_without_a_card_unless_cpu_is_chosen(
+        tmp_path):
+    """The training path (the loss, the train step, the Trainer and the
+    training launcher) runs on the card by default, raises without one,
+    and runs on the CPU only when asked."""
+    import torch
+    import repro_torch
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import init_params
+    from repro_torch.optim.adamw import OptimizerConfig
+    from repro_torch.training.train_step import (init_train_state,
+                                                 make_train_step)
+    from repro_torch.training.trainer import Trainer
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    cfg = reduced(get_config("deepseek-67b"))
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    params = init_params(M.model_specs(cfg), gen, torch.device("cpu"))
+    opt = OptimizerConfig()
+    state = init_train_state(params, opt)
+    toks = np.zeros((2, 9), np.int32)
+    batch = {"tokens": toks[:, :8], "labels": toks[:, 1:]}
+    argv = ["--arch", "deepseek-67b", "--reduced", "--steps", "1",
+            "--global-batch", "2", "--seq-len", "8", "--ckpt-dir",
+            str(tmp_path), "--override", "num_layers=1"]
+    repro_torch.set_device("cuda")
+    try:
+        for call in (lambda: M.make_loss_fn(cfg)(params, batch),
+                     lambda: make_train_step(cfg, opt)(params, state, batch),
+                     lambda: Trainer(cfg, global_batch=2, seq_len=8,
+                                     ckpt_dir=str(tmp_path)),
+                     lambda: train.main(argv)):
+            with pytest.raises(RuntimeError, match="set_device"):
+                call()
+    finally:
+        repro_torch.set_device("cpu")
+    out = train.main(argv + ["--device", "cpu"])
+    assert out["trainer"].step == 1
+    loss, _ = M.make_loss_fn(cfg)(params, batch)
+    assert torch.isfinite(loss)
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "olmoe-1b-7b",
+                                  "jamba-v0.1-52b", "xlstm-125m"])
+def test_unported_blocks_raise_not_implemented_in_train_mode(arch, tmp_path):
+    """MoE, Mamba and xLSTM blocks refuse the training path too."""
+    import repro_torch
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as M
+    from repro_torch.training.train_step import make_train_step
+    from repro_torch.training.trainer import Trainer
+    repro_torch.set_device("cpu")
+    cfg = reduced(get_config(arch))
+    for call in (lambda: M.make_loss_fn(cfg), lambda: make_train_step(cfg),
+                 lambda: Trainer(cfg, global_batch=2, seq_len=8,
+                                 ckpt_dir=str(tmp_path))):
+        with pytest.raises(NotImplementedError, match="slice"):
+            call()

@@ -1579,3 +1579,107 @@ def test_concurrent_kernel_dispatches_equal_serial(dev, kernel):
     bad = _concurrently(cases, want)
     assert not bad, (len(bad), bad[:8])
     assert wrapper.launches - n0 == THREADS * REPS
+
+
+# ---------------------------------------------------------------------------
+# the training path's backward kernels: K7's and K8's
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("N,d", [(1, 16), (3, 96), (300, 512), (37, 8192),
+                                 (5, 10001), (4096, 8192)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_bwd_kernel(dev, N, d, dtype):
+    """K7's backward against ``rmsnorm_bwd_plain``: fewer rows than row
+    blocks, a d no vector width divides, the train step's [4096, 8192];
+    within ``BWD_RTOL`` (float32) or ``BF16_RTOL`` of each gradient's
+    largest magnitude, and the same bits on a second launch (no
+    atomics: ``run_case`` checks)."""
+    r = SC.run_case(SC.k7_bwd_case(N, d, seed=N + d, dev=dev, dtype=dtype),
+                    timed=False)
+    assert r["ok"], r
+
+
+def _k8_bwd_shape(case, G):
+    """(B, H, KV, Sq, Skv, causal, q_offset) of one K8 backward case."""
+    H = 2 * G
+    return {
+        # Sq not a multiple of the 64-row tiles
+        "ragged": (2, H, 2, 77, 77, True, 0),
+        # queries past an offset over more keys (a decode-like chunk)
+        "offset": (1, H, 2, 40, 150, True, 100),
+        "full": (2, H, 2, 50, 100, False, 0),
+    }[case]
+
+
+@pytest.mark.parametrize("case", ["ragged", "offset", "full"])
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_kernel(dev, case, G, hd, dtype):
+    """K8's backward against ``flash_bwd_plain`` (autograd of the oracle):
+    every head dim, GQA groups of 1, 4 and 8, ragged tiles, a query
+    offset, full attention, float32 and bfloat16; within ``BWD_RTOL``
+    (float32) or ``BF16_RTOL`` of each gradient's largest magnitude, and
+    the same bits on a second launch."""
+    B, H, KV, Sq, Skv, causal, q_offset = _k8_bwd_shape(case, G)
+    r = SC.run_case(SC.k8_bwd_case(B, H, KV, Sq, Skv, hd, seed=Sq + hd + G,
+                                   dev=dev, causal=causal, q_offset=q_offset,
+                                   dtype=dtype), timed=False)
+    assert r["ok"], r
+
+
+@pytest.mark.parametrize("i", range(2))
+def test_train_path_shapes(dev, i):
+    """The backward kernels at deepseek-67b's train-step shapes."""
+    r = SC.run_case(SC.train_cases(dev)[i], timed=False)
+    assert r["ok"], r
+
+
+def test_repair_rmsnorm_has_a_gradient_on_the_card(dev):
+    """Through ``model_ops.rmsnorm`` on the card, x and w get the plain
+    version's gradient.  (K7's wrapper once returned a tensor its ctypes
+    call filled, with no ``grad_fn``: backward stopped at every norm.)"""
+    from repro_torch.kernels import model_ops
+    from repro_torch.kernels.ref import rmsnorm_ref
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    x = torch.randn(2, 64, 512, device=dev, generator=g).requires_grad_()
+    w = torch.randn(512, device=dev, generator=g).requires_grad_()
+    dy = torch.randn(2, 64, 512, device=dev, generator=g)
+    y = model_ops.rmsnorm(x, w)
+    assert y.requires_grad, "no gradient through K7"
+    got = torch.autograd.grad(y, (x, w), dy)
+    want = torch.autograd.grad(rmsnorm_ref(x, w), (x, w), dy)
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+def test_repair_flash_backward_runs_no_oracle_on_the_card(dev, monkeypatch):
+    """K8's gradient on the card comes from its backward kernels: the
+    oracle is made to raise while it runs, and the gradients equal
+    autograd of the oracle run afterwards.  (K8's backward once
+    recomputed through the oracle for CUDA tensors too, materializing the
+    [Sq, Skv] scores of every head.)"""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import model_ops
+    from repro_torch.kernels import ref
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    q = torch.randn(2, 96, 8, 64, device=dev, generator=g)
+    k = torch.randn(2, 96, 2, 64, device=dev, generator=g)
+    v = torch.randn(2, 96, 2, 64, device=dev, generator=g)
+    dy = torch.randn(2, 96, 8, 64, device=dev, generator=g)
+    want = torch.autograd.grad(
+        ref.flash_attention_ref(*(t.requires_grad_() for t in (q, k, v))),
+        (q, k, v), dy)
+    oracle = ref.flash_attention_ref
+
+    def refuse(*a, **kw):
+        raise AssertionError("the oracle ran on the card")
+    for mod in (ref, FA, model_ops):
+        if getattr(mod, "flash_attention_ref", None) is oracle:
+            monkeypatch.setattr(mod, "flash_attention_ref", refuse)
+    qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(model_ops.flash_attention(*qkv), qkv, dy)
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
