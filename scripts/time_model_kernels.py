@@ -2,8 +2,11 @@
 """Time kernels of the port at their main-path shapes on one CUDA device,
 beside their bounds, for one or two source trees: K7 (rmsnorm), K8 (flash
 attention) and K9 (LSM decode attention) at the serve path's shapes
-(``selfcheck.serve_cases``), K2 (fused filter-aggregate) at the columnar
-path's n = 2**19 and K5 (edit distances) at the fuzzy path's 2**16 names
+(``selfcheck.serve_cases``), K7's and K8's backward at the train step's
+(``selfcheck.train_cases``: [4096, 8192]; q [2, 2048, 64, 128], k/v
+[2, 2048, 8, 128], causal, float32), K2 (fused filter-aggregate) at the
+columnar path's n = 2**19 and K5 (edit distances) at the fuzzy path's
+2**16 names
 (``selfcheck.main_path_cases``), K4 (T-occurrence count) at T > 1: the
 columnar T = 3 case, the 16-tier T = 13 case and the ngram probe's own
 shape at T = 13 and 7 (built here for a tree that predates
@@ -27,6 +30,7 @@ column region as its library yardstick).
 
 Usage:  python scripts/time_model_kernels.py [--src DIR [--src DIR]]
             [--kernels rmsnorm,lsm_decode_attention,flash_attention,
+                       rmsnorm_bwd,flash_attention_bwd,
                        fused_filter_aggregate,t_occurrence_mask,
                        edit_distances,sorted_intersect_mask,
                        set_intersect_counts,range_mask,
@@ -69,7 +73,10 @@ ROOT = Path(__file__).resolve().parents[1]
 # holds "intersect": A7's kernel, bitset_intersect_kernel, holds it too but
 # never runs in their cases)
 KERNELS = {"rmsnorm": ("rmsnorm",), "lsm_decode_attention": ("decode_partial",),
-           "flash_attention": ("flash_",), "fused_filter_aggregate": ("agg_",),
+           "flash_attention": ("flash_fwd_", "flash_wg_"),
+           "rmsnorm_bwd": ("rmsnorm_bwd", "rmsnorm_dw"),
+           "flash_attention_bwd": ("flash_bwd_",),
+           "fused_filter_aggregate": ("agg_",),
            "t_occurrence_mask": ("tocc_", "Memset"),
            "edit_distances": ("edit_distance",),
            "sorted_intersect_mask": ("intersect",),
@@ -80,6 +87,8 @@ KERNELS = {"rmsnorm": ("rmsnorm",), "lsm_decode_attention": ("decode_partial",),
            "stacked_filter_aggregate": ("agg_",),
            "spmd_exchange": ("xch_", "exchange")}
 SERVE = ("rmsnorm", "lsm_decode_attention", "flash_attention")
+# the train step's backward kernels (selfcheck.train_cases)
+TRAIN = ("rmsnorm_bwd", "flash_attention_bwd")
 MAIN = ("fused_filter_aggregate", "edit_distances", "sorted_intersect_mask",
         "set_intersect_counts")
 # the rung cases' selfcheck kernel names, by option
@@ -279,6 +288,8 @@ def one(src: str, run: int, iters: int, kernels: list) -> int:
                 occ[f"{name} C={c}"] = out.value if rc == 0 else f"error {rc}"
     cases = selfcheck.serve_cases(dev) \
         if any(k in SERVE for k in kernels) else []
+    if any(k in TRAIN for k in kernels):
+        cases += selfcheck.train_cases(dev)
     if any(k in MAIN for k in kernels):
         cases += [c for c in selfcheck.main_path_cases(dev)
                   if c["kernel"] in MAIN]

@@ -246,28 +246,44 @@ extern "C" int rt_rmsnorm(const void* x, int xdt, const void* w, int wdt,
 // K7 backward: given x [N, d], w [d] and the output's gradient g [N, d],
 //   dx = rstd (w g - xh mean(w g xh)),  xh = x rstd,
 //   dw = sum over rows of g xh,
-// rstd recomputed per row.  The reference differentiates its rmsnorm with
-// XLA's autodiff of the plain formula (there is no Pallas backward); this
-// kernel computes the same function in one pass over the rows.
-//
-// rmsnorm_bwd_kernel: P blocks of 256 threads (P = min(N, 264), two a SM),
-// block p taking rows p, p + P, ... in order.  A row is read twice: the
-// first pass folds sum(x^2) and sum(w g x) per thread and across the block
-// in a fixed order (as the forward's block_sum), the second (from L1/L2)
-// writes dx and adds g xh into the block's float32 dw row in shared memory,
-// where thread t owns columns t, t + 256, ... (no two threads share a
-// column, so no atomics and no barrier between rows).  The block's row of
-// partials goes to scratch [P, d]; rmsnorm_dw_kernel then adds the P
-// partials of each column in block order.  Every sum's order depends only
-// on (N, d), so the result is the same on every run.
+// rstd recomputed per row.  No TPU kernel of its own: the reference
+// differentiates its rmsnorm (repro/models/layers.py:rms_norm, :164) with
+// XLA's autodiff of the plain formula, and has no pallas_call for it.
 //
 // Bound: memory.  x and g read once, dx written once (w, dw and the
-// scratch are small): 403 MB at [4096, 8192] float32, 0.12 ms at
-// 3.35 TB/s.  First design: scalar loads, the row read twice.
+// partials are small): 403 MB at [4096, 8192] float32, 0.12 ms at
+// 3.35 TB/s.
+//
+// rmsnorm_bwd_vec_kernel (rows 16-byte aligned, d a multiple of the vector
+// width, at most 256 x 32 / VW vectors a row: d <= 8192): P blocks of 256
+// threads (P = min(N, 264), two an SM), block p taking rows p, p + P, ...
+// in order, w staged once in shared memory as float32.  Thread t owns
+// vectors t, t + 256, ... of every row: it loads its x and g vectors with
+// 16-byte loads, all in flight before any is used, keeps them in registers
+// while the block folds sum(x^2) and sum(w g x) in a fixed order (a warp
+// butterfly, then the 8 warp sums in order; one barrier a row, the warp
+// sums double-buffered by row parity), then writes dx from the same
+// registers and adds g xh to its dw partials, which stay in registers
+// because the thread owns the same columns on every row.  So x and g are
+// read once from device memory, and 32 KB of shared memory a block leaves
+// room for two blocks an SM with all their vectors in flight.  The first
+// design read each row twice with scalar loads and kept a block's dw row
+// in shared memory (up to 192 KB: one block an SM); it stays as the route
+// for rows the vector kernel cannot take (rmsnorm_bwd_kernel).
+//
+// Each block's dw partials go to scratch [P, d]; rmsnorm_dw_kernel adds
+// the P partials of a column in a fixed order (8 strided groups in order
+// of p, then the 8 group sums in order).  Every sum's order depends only
+// on (N, d), so the result is the same on every run; no atomics.
 // ---------------------------------------------------------------------------
 namespace {
 constexpr int BWD_BLOCKS = 264;
+constexpr int BWD_VEC_FLOATS = 32;       // x (and dw) floats a thread a row
 
+// a and b folded over the block: a warp butterfly, then the NT / 32 warp
+// sums in order.  Every thread gets the block's sums; warp_sums holds
+// 2 NT / 32 floats, and is free once every thread has passed the next
+// call's barrier.
 __device__ __forceinline__ void block_sum2(float& a, float& b,
                                            float* warp_sums) {
   for (int off = 16; off > 0; off >>= 1) {
@@ -285,23 +301,116 @@ __device__ __forceinline__ void block_sum2(float& a, float& b,
     ta += warp_sums[i];
     tb += warp_sums[NT / 32 + i];
   }
-  __syncthreads();                       // warp_sums is reused next row
   a = ta;
   b = tb;
 }
 }  // namespace
 
+// MV: 16-byte vectors a thread a row (nv <= NT MV)
+template <typename T, typename W, int MV>
+__global__ void __launch_bounds__(NT, 2) rmsnorm_bwd_vec_kernel(
+    const T* __restrict__ x, const W* __restrict__ w,
+    const T* __restrict__ g, T* __restrict__ dx, float* __restrict__ part,
+    int64_t N, int64_t d, float eps) {
+  constexpr int VW = 16 / sizeof(T);
+  extern __shared__ float4 w_s[];        // w as float32, d values
+  __shared__ float warp_sums[2][2 * NT / 32];
+  const int tid = threadIdx.x;
+  const int nv = static_cast<int>(d / VW);
+  float* wf = reinterpret_cast<float*>(w_s);
+  for (int64_t j = tid; j < d; j += NT) wf[j] = ld(w, j);
+  __syncthreads();
+  float dwp[MV][VW];
+#pragma unroll
+  for (int p = 0; p < MV; ++p)
+#pragma unroll
+    for (int e = 0; e < VW; ++e) dwp[p][e] = 0.f;
+  const float inv_d = 1.f / static_cast<float>(d);
+  int parity = 0;
+  for (int64_t row = blockIdx.x; row < N; row += gridDim.x, parity ^= 1) {
+    const uint4* xr = reinterpret_cast<const uint4*>(x + row * d);
+    const uint4* gr = reinterpret_cast<const uint4*>(g + row * d);
+    uint4 xv[MV], gv[MV];
+#pragma unroll
+    for (int p = 0; p < MV; ++p) {
+      const int vi = tid + p * NT;
+      if (vi < nv) {
+        xv[p] = xr[vi];
+        gv[p] = gr[vi];
+      }
+    }
+    float ss = 0.f, dot = 0.f;
+#pragma unroll
+    for (int p = 0; p < MV; ++p) {
+      const int vi = tid + p * NT;
+      if (vi < nv) {
+        float xf[VW], gf[VW], wv[VW];
+        unpack(xv[p], xf, T());
+        unpack(gv[p], gf, T());
+#pragma unroll
+        for (int k = 0; k < VW / 4; ++k)
+          unpack(reinterpret_cast<const uint4*>(w_s)[vi * (VW / 4) + k],
+                 wv + 4 * k, 0.f);
+#pragma unroll
+        for (int e = 0; e < VW; ++e) {
+          ss = fmaf(xf[e], xf[e], ss);
+          dot = fmaf(wv[e] * gf[e], xf[e], dot);
+        }
+      }
+    }
+    block_sum2(ss, dot, warp_sums[parity]);
+    const float r = 1.f / sqrtf(ss * inv_d + eps);
+    const float c = dot * r * inv_d;     // mean(w g xh)
+    uint4* dr = reinterpret_cast<uint4*>(dx + row * d);
+#pragma unroll
+    for (int p = 0; p < MV; ++p) {
+      const int vi = tid + p * NT;
+      if (vi < nv) {
+        float xf[VW], gf[VW], wv[VW], f[VW];
+        unpack(xv[p], xf, T());
+        unpack(gv[p], gf, T());
+#pragma unroll
+        for (int k = 0; k < VW / 4; ++k)
+          unpack(reinterpret_cast<const uint4*>(w_s)[vi * (VW / 4) + k],
+                 wv + 4 * k, 0.f);
+#pragma unroll
+        for (int e = 0; e < VW; ++e) {
+          const float xh = xf[e] * r;
+          f[e] = r * (wv[e] * gf[e] - xh * c);
+          dwp[p][e] = fmaf(gf[e], xh, dwp[p][e]);
+        }
+        dr[vi] = pack(f, T());
+      }
+    }
+  }
+  float* pr = part + static_cast<int64_t>(blockIdx.x) * d;
+#pragma unroll
+  for (int p = 0; p < MV; ++p) {
+    const int vi = tid + p * NT;
+    if (vi < nv) {
+#pragma unroll
+      for (int k = 0; k < VW / 4; ++k)
+        reinterpret_cast<uint4*>(pr)[vi * (VW / 4) + k] =
+            pack(dwp[p] + 4 * k, 0.f);
+    }
+  }
+}
+
+// The first design, for rows the vector kernel cannot take: a block's dw
+// row (d floats) in shared memory, where thread t owns columns t, t + 256,
+// ...; each row read twice with scalar loads (the second from L1/L2).
 template <typename T, typename W>
 __global__ void __launch_bounds__(NT) rmsnorm_bwd_kernel(
     const T* __restrict__ x, const W* __restrict__ w,
     const T* __restrict__ g, T* __restrict__ dx, float* __restrict__ part,
     int64_t N, int64_t d, float eps) {
   extern __shared__ float dw_row[];      // d floats
-  __shared__ float warp_sums[2 * NT / 32];
+  __shared__ float warp_sums[2][2 * NT / 32];
   const int tid = threadIdx.x;
   for (int64_t j = tid; j < d; j += NT) dw_row[j] = 0.f;
   const float inv_d = 1.f / static_cast<float>(d);
-  for (int64_t row = blockIdx.x; row < N; row += gridDim.x) {
+  int parity = 0;
+  for (int64_t row = blockIdx.x; row < N; row += gridDim.x, parity ^= 1) {
     const T* xr = x + row * d;
     const T* gr = g + row * d;
     float ss = 0.f, dot = 0.f;
@@ -310,7 +419,7 @@ __global__ void __launch_bounds__(NT) rmsnorm_bwd_kernel(
       ss = fmaf(xv, xv, ss);
       dot = fmaf(ld(w, j) * ld(gr, j), xv, dot);
     }
-    block_sum2(ss, dot, warp_sums);
+    block_sum2(ss, dot, warp_sums[parity]);
     const float r = 1.f / sqrtf(ss * inv_d + eps);
     const float c = dot * r * inv_d;     // mean(w g xh)
     T* dr = dx + row * d;
@@ -325,42 +434,78 @@ __global__ void __launch_bounds__(NT) rmsnorm_bwd_kernel(
   for (int64_t j = tid; j < d; j += NT) pr[j] = dw_row[j];
 }
 
-// dw[j] = sum over p < P of part[p, j], in order of p
+// dw[j] = sum over p < P of part[p, j]: a block takes 32 columns; warp q
+// adds p = q, q + 8, ... in order, then warp 0 the 8 warp sums in order
 template <typename W>
-__global__ void rmsnorm_dw_kernel(const float* __restrict__ part,
-                                  W* __restrict__ dw, int P, int64_t d) {
-  const int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-  if (j >= d) return;
+__global__ void __launch_bounds__(256) rmsnorm_dw_kernel(
+    const float* __restrict__ part, W* __restrict__ dw, int P, int64_t d) {
+  __shared__ float sums[8][32];
+  const int lane = threadIdx.x & 31, q = threadIdx.x >> 5;
+  const int64_t j = static_cast<int64_t>(blockIdx.x) * 32 + lane;
   float s = 0.f;
-  for (int p = 0; p < P; ++p) s += part[static_cast<int64_t>(p) * d + j];
-  st(dw, j, s);
+  if (j < d) {
+#pragma unroll 4
+    for (int p = q; p < P; p += 8) s += part[static_cast<int64_t>(p) * d + j];
+  }
+  sums[q][lane] = s;
+  __syncthreads();
+  if (q == 0 && j < d) {
+    float t = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) t += sums[i][lane];
+    st(dw, j, t);
+  }
 }
 
 extern "C" int rt_rmsnorm_bwd_blocks(int64_t N);
+
+template <typename T, typename W, int MV>
+static cudaError_t launch_bwd_vec(const void* x, const void* w,
+                                  const void* g, void* dx, float* part,
+                                  int P, int64_t N, int64_t d, float eps,
+                                  cudaStream_t s) {
+  rmsnorm_bwd_vec_kernel<T, W, MV><<<P, NT, d * sizeof(float), s>>>(
+      static_cast<const T*>(x), static_cast<const W*>(w),
+      static_cast<const T*>(g), static_cast<T*>(dx), part, N, d, eps);
+  return cudaGetLastError();
+}
 
 template <typename T, typename W>
 static int launch_bwd(const void* x, const void* w, const void* g, void* dx,
                       void* dw, float* part, int64_t N, int64_t d, float eps,
                       cudaStream_t s) {
-  static int cap = 48 * 1024;
+  constexpr int VW = 16 / sizeof(T), MAXMV = BWD_VEC_FLOATS / VW;
   const int P = rt_rmsnorm_bwd_blocks(N);
-  const int bytes = static_cast<int>(d * sizeof(float));
-  cudaError_t e = allow_smem(rmsnorm_bwd_kernel<T, W>, bytes, &cap);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (P > 0)
-    rmsnorm_bwd_kernel<T, W><<<P, NT, bytes, s>>>(
-        static_cast<const T*>(x), static_cast<const W*>(w),
-        static_cast<const T*>(g), static_cast<T*>(dx), part, N, d, eps);
-  const int threads = 256;
-  const int blocks = static_cast<int>((d + threads - 1) / threads);
-  if (blocks > 0) {
-    if (P > 0)
-      rmsnorm_dw_kernel<W><<<blocks, threads, 0, s>>>(
-          part, static_cast<W*>(dw), P, d);
+  const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(g) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(dx) % 16 == 0;
+  const int64_t nv = d / VW;
+  cudaError_t e = cudaSuccess;
+  if (P > 0 && aligned && d % VW == 0 && nv <= NT * MAXMV) {
+    if (nv <= NT)
+      e = launch_bwd_vec<T, W, 1>(x, w, g, dx, part, P, N, d, eps, s);
+    else if (nv <= 2 * NT)
+      e = launch_bwd_vec<T, W, 2>(x, w, g, dx, part, P, N, d, eps, s);
+    else if (nv <= 4 * NT || MAXMV == 4)
+      e = launch_bwd_vec<T, W, 4>(x, w, g, dx, part, P, N, d, eps, s);
     else
-      cudaMemsetAsync(dw, 0, d * sizeof(W), s);
+      e = launch_bwd_vec<T, W, MAXMV>(x, w, g, dx, part, P, N, d, eps, s);
+  } else if (P > 0) {
+    static int cap = 48 * 1024;
+    const int bytes = static_cast<int>(d * sizeof(float));
+    e = allow_smem(rmsnorm_bwd_kernel<T, W>, bytes, &cap);
+    if (e == cudaSuccess)
+      rmsnorm_bwd_kernel<T, W><<<P, NT, bytes, s>>>(
+          static_cast<const T*>(x), static_cast<const W*>(w),
+          static_cast<const T*>(g), static_cast<T*>(dx), part, N, d, eps);
   }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int blocks = static_cast<int>((d + 31) / 32);
+  if (P > 0)
+    rmsnorm_dw_kernel<W><<<blocks, 256, 0, s>>>(part, static_cast<W*>(dw), P,
+                                                d);
+  else
+    cudaMemsetAsync(dw, 0, d * sizeof(W), s);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -371,7 +516,10 @@ extern "C" int rt_rmsnorm_bwd_blocks(int64_t N) {
 }
 
 // x, g, dx: [N, d] contiguous of type xdt; w, dw: [d] of type wdt; part:
-// float32 scratch of rt_rmsnorm_bwd_blocks(N) x d.
+// float32 scratch of rt_rmsnorm_bwd_blocks(N) x d (16-byte aligned).  Rows
+// 16-byte aligned with d a multiple of the vector width (4 float32, 8
+// bfloat16) and d <= 8192 take the vector kernel, the rest the first
+// design.
 extern "C" int rt_rmsnorm_bwd(const void* x, int xdt, const void* w, int wdt,
                               const void* g, void* dx, void* dw, float* part,
                               int64_t N, int64_t d, float eps,

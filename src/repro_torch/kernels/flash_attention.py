@@ -158,7 +158,7 @@ def flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """K8 backward on the card: (dq, dk, dv) in q's dtype, given the
     forward's output ``o`` and row logsumexp ``lse`` (``flash_cuda(...,
     with_lse=True)``) and the output gradient ``g``.  Operands that are not
-    contiguous are copied to contiguous ones first."""
+    contiguous, or not 16-byte aligned, are copied first."""
     B, Sq, H, hd = q.shape
     KV, Skv = k.shape[2], k.shape[1]
     if not (q.is_cuda and k.is_cuda and v.is_cuda and o.is_cuda
@@ -174,7 +174,11 @@ def flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         "[B, Sq, H, hd], k, v [B, Skv, KV, hd] (one dtype, "
                         f"hd in {HEAD_DIMS}) and float32 lse [B, H, Sq] "
                         "expected")
-    q, k, v, o, g, lse = (t.contiguous() for t in (q, k, v, o, g, lse))
+    # contiguous, and 16-byte aligned for the float32 kernels' TMA tiles and
+    # vector loads (a contiguous view at an odd offset is copied)
+    q, k, v, o, g, lse = (t if t.is_contiguous() and t.data_ptr() % 16 == 0
+                          else t.clone(memory_format=torch.contiguous_format)
+                          for t in (q, k, v, o, g, lse))
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     dsum = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     f = _ops.lib().rt_flash_attention_bwd

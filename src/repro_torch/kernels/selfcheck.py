@@ -1173,18 +1173,35 @@ def k8_case(B: int, H: int, KV: int, Sq: int, Skv: int, hd: int, seed: int,
             "ops": flops, "tc_s": tc_s}
 
 
+def _offset_view(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s values in a contiguous view one element into a larger
+    buffer: not 16-byte aligned."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:] = t.reshape(-1)
+    return buf[1:].view(t.shape)
+
+
 def k7_bwd_case(N: int, d: int, seed: int, dev: torch.device,
-                dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
+                dtype: torch.dtype = torch.float32,
+                offset: str = "") -> Dict[str, Any]:
     """K7's backward over x, g [N, d] in ``dtype`` with float32 weights;
-    the library call is autograd's backward of ``F.rms_norm``."""
+    the library call is autograd's backward of ``F.rms_norm``.  ``offset``
+    names the operands ("x", "g" or both) handed over one element off a
+    16-byte boundary."""
     rng = np.random.default_rng(seed)
     x = _randn(rng, (N, d), dtype, dev)
     w = _randn(rng, (d,), torch.float32, dev)
     g = _randn(rng, (N, d), dtype, dev)
+    if "x" in offset:
+        x = _offset_view(x)
+    if "g" in offset:
+        g = _offset_view(g)
     xl = x.detach().requires_grad_(True)
     wl = w.detach().to(dtype).requires_grad_(True)
     yl = torch.nn.functional.rms_norm(xl, (d,), wl, eps=1e-5)
-    return {"kernel": "rmsnorm_bwd", "label": f"x, g [{N}, {d}] {dtype}",
+    return {"kernel": "rmsnorm_bwd",
+            "label": f"x, g [{N}, {d}] {dtype}"
+                     + (f" {offset} offset" if offset else ""),
             "run": lambda: RN.rmsnorm_bwd_cuda(x, w, g),
             "plain": lambda: RN.rmsnorm_bwd_plain(x, w, g),
             "library": lambda: torch.autograd.grad(yl, (xl, wl), g,

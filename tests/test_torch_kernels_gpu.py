@@ -1599,6 +1599,23 @@ def test_rmsnorm_bwd_kernel(dev, N, d, dtype):
     assert r["ok"], r
 
 
+@pytest.mark.parametrize("N,d,offset", [
+    (300, 8192, "x"), (300, 8192, "g"), (64, 2048, "xg"),
+    # multiples of 4 (8 for bfloat16) that are no multiple of the 256
+    # threads' vector span
+    (37, 2056, ""), (5, 8184, ""), (130, 1032, "")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_bwd_vector_route(dev, N, d, offset, dtype):
+    """K7's backward around its vector kernel: operands one element off a
+    16-byte boundary (they take the first design), and rows whose vectors
+    fill the threads' last pass only in part; within ``BWD_RTOL`` or
+    ``BF16_RTOL`` of each gradient's largest magnitude, the same bits on a
+    second launch."""
+    r = SC.run_case(SC.k7_bwd_case(N, d, seed=N + d, dev=dev, dtype=dtype,
+                                   offset=offset), timed=False)
+    assert r["ok"], r
+
+
 def _k8_bwd_shape(case, G):
     """(B, H, KV, Sq, Skv, causal, q_offset) of one K8 backward case."""
     H = 2 * G
@@ -1626,6 +1643,51 @@ def test_flash_attention_bwd_kernel(dev, case, G, hd, dtype):
                                    dev=dev, causal=causal, q_offset=q_offset,
                                    dtype=dtype), timed=False)
     assert r["ok"], r
+
+
+@pytest.mark.parametrize("shape", [
+    # several 64-key and 32-query tiles (dK/dV), 64-query and 32-key tiles
+    # (dQ), causal
+    (1, 16, 2, 300, 300, True, 0),
+    # one query over 1,000 keys: every key tile, one query tile
+    (1, 16, 2, 1, 1000, True, 999),
+    # Skv no multiple of either key tile, Sq none of either query tile
+    (2, 16, 2, 130, 200, False, 0),
+    (1, 8, 1, 150, 219, True, 69)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_tiles(dev, shape, dtype):
+    """K8's backward at hd 128, G 8 over many tiles of the float32
+    design's four tilings (64 keys by 32 queries for dK/dV, 64 queries by
+    32 keys for dQ), ragged edges of each, a query offset; within
+    ``BWD_RTOL`` (float32) or ``BF16_RTOL`` of each gradient's largest
+    magnitude, the same bits on a second launch."""
+    B, H, KV, Sq, Skv, causal, q_offset = shape
+    r = SC.run_case(SC.k8_bwd_case(B, H, KV, Sq, Skv, 128, seed=Sq + Skv,
+                                   dev=dev, causal=causal, q_offset=q_offset,
+                                   dtype=dtype), timed=False)
+    assert r["ok"], r
+
+
+def test_flash_attention_bwd_unaligned_operands(dev):
+    """K8's float32 backward handed contiguous views one element off a
+    16-byte boundary (its TMA tiles need 16-byte aligned bases): the
+    wrapper copies them, and the gradients equal the aligned call's bit
+    for bit."""
+    from repro_torch.kernels import flash_attention as FA
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    q, g = (torch.randn(1, 100, 8, 64, device=dev, generator=gen)
+            for _ in range(2))
+    k, v = (torch.randn(1, 130, 2, 64, device=dev, generator=gen)
+            for _ in range(2))
+    o, lse = FA.flash_cuda(q, k, v, True, 0, with_lse=True)
+    want = FA.flash_bwd_cuda(q, k, v, o, lse, g, True, 0)
+    odd = [SC._offset_view(t) for t in (q, k, v, o, g)]
+    assert all(t.data_ptr() % 16 != 0 for t in odd)
+    got = FA.flash_bwd_cuda(*odd[:4], lse, odd[4], True, 0)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("i", range(2))
